@@ -1,36 +1,25 @@
-"""Test-time data loading for the port, sharing the JAX package's host code.
+"""Test-time data loading for the port (counterpart of
+``afigan_tpu/data/loader.py`` and ``dataset_mapper.py``, eval only).
 
-The JAX package's numpy modules ``afigan_tpu/data/coco.py`` (COCO parsing,
-dataset registry, ``read_image``) and ``afigan_tpu/data/transforms.py``
-(d2 ResizeShortestEdge numerics) are loaded from their files under private
-module names: importing them through ``afigan_tpu.data`` would run that
-package's ``__init__``, which imports the jax-based loader. The collate
-step (pad to a ``TPU.IMAGE_BUCKETS`` canvas, stack) is re-done here in
-numpy, equal to ``afigan_tpu.data.loader.collate_batch`` for eval batches.
+The eval mapper (read, resize shortest edge) and the collate step (pad to a
+``TPU.IMAGE_BUCKETS`` canvas rounded up to the model's size divisibility,
+stack) in numpy, equal to the JAX package's for eval batches.
 """
 
 from __future__ import annotations
 
-import importlib.util
-import sys
-from pathlib import Path
 from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
-_JAX_DATA = Path(__file__).resolve().parents[1] / "afigan_tpu" / "data"
+from . import coco, transforms
 
 
-def shared(name: str):
-    """``afigan_tpu/data/<name>.py`` as a standalone module (numpy only)."""
-    mod_name = f"afigan_tpu_torch._shared_{name}"
-    mod = sys.modules.get(mod_name)
-    if mod is None:
-        spec = importlib.util.spec_from_file_location(mod_name, _JAX_DATA / f"{name}.py")
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[mod_name] = mod  # dataclasses resolve annotations here
-        spec.loader.exec_module(mod)
-    return mod
+def required_size_divisibility(cfg) -> int:
+    """Canvas divisibility the model family needs: BiFPN carries a
+    stride-128 p7 and exact-2x up/down paths between levels, so 128; the
+    FPN families (p6 top) 64."""
+    return 128 if "bifpn" in cfg.MODEL.BACKBONE.NAME.lower() else 64
 
 
 def choose_bucket(h: int, w: int, buckets: Sequence[Sequence[int]],
@@ -47,7 +36,6 @@ def choose_bucket(h: int, w: int, buckets: Sequence[Sequence[int]],
 
 def map_record(cfg, record: Dict) -> Dict:
     """Eval DatasetMapper: read (BGR), resize shortest edge, keep uint8."""
-    coco, transforms = shared("coco"), shared("transforms")
     img = record.get("image")
     if img is None:
         img = coco.read_image(record["file_name"], cfg.INPUT.FORMAT)
@@ -77,15 +65,16 @@ def collate_batch(samples: List[Dict], buckets, size_divisibility: int = 64) -> 
 def build_test_loader(cfg, dataset, batch_size: int = 1) -> Iterator[Dict]:
     """Sequential eval batches; the last batch is padded by repetition with
     ``image_id`` -1 on the padding (as the JAX loader)."""
+    div = required_size_divisibility(cfg)
     buf = []
     for rec in dataset.records:
         buf.append(map_record(cfg, rec))
         if len(buf) == batch_size:
-            yield collate_batch(buf, cfg.TPU.IMAGE_BUCKETS)
+            yield collate_batch(buf, cfg.TPU.IMAGE_BUCKETS, div)
             buf = []
     if buf:
         n_real = len(buf)
         buf += [buf[-1]] * (batch_size - n_real)
-        batch = collate_batch(buf, cfg.TPU.IMAGE_BUCKETS)
+        batch = collate_batch(buf, cfg.TPU.IMAGE_BUCKETS, div)
         batch["image_id"][n_real:] = -1
         yield batch

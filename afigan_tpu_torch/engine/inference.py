@@ -1,7 +1,7 @@
 """Inference runner and host-side postprocessing (counterpart of
 ``afigan_tpu/engine/inference.py``): ``predict`` on one collated batch,
 ``rescale_boxes``, ``paste_masks`` (torch bilinear, no cv2) and
-``run_inference`` feeding the JAX package's numpy ``CocoEvaluator``."""
+``run_inference`` feeding the port's numpy ``CocoEvaluator``."""
 
 from __future__ import annotations
 
@@ -60,9 +60,8 @@ def predict(model, batch: Dict):
 
 def run_inference(cfg, model, dataset, batch_size: int = 1) -> Dict[str, Dict[str, float]]:
     """inference_on_dataset + COCOEvaluator.evaluate."""
-    from afigan_tpu.evaluation.coco_eval import CocoEvaluator
-
     from ..data import build_test_loader
+    from ..evaluation import CocoEvaluator
 
     tasks = ("bbox", "segm") if cfg.MODEL.MASK_ON else ("bbox",)
     evaluator = CocoEvaluator(dataset, tasks=tasks)

@@ -10,10 +10,14 @@ Parameters carry the d2 reference's names (``Generators.0.0.0`` head,
 ``.3.0`` transposed conv, ``.4.0`` tail), so
 ``afigan_tpu.utils.converters`` maps them 1:1.
 
-The forward is always ``fused_generator_chain`` + ``fused_upsample``
-(``ops/kernels/afi_generator.py``): hand-written CUDA kernels on the card,
-the plain PyTorch versions on the CPU. ``MODEL.AFI.FUSED_KERNEL`` is not
-read.
+The forward always goes through ``ops/kernels/afi_generator.py``
+(hand-written CUDA kernels on the card, the plain PyTorch versions on the
+CPU), split as the JAX package's fused path splits it: with three dense
+blocks ``fused_generator_chain`` + ``fused_upsample``; with any other
+number the head conv (the same conv kernel), one ``fused_rdb`` per block
+with the RiR residual folded into the last block's epilogue, then
+``fused_upsample``. On the card neither branch runs a library convolution
+or a residual in torch. ``MODEL.AFI.FUSED_KERNEL`` is not read.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ...ops.kernels.afi_generator import fused_generator_chain, fused_upsample
+from ...ops.kernels.afi_generator import (conv3x3, fused_generator_chain,
+                                          fused_rdb, fused_upsample)
 from ..layers import init_weight
 
 
@@ -54,6 +59,8 @@ class AFIGenerator(nn.Module):
                  residual_scale=0.2, device=None):
         super().__init__()
         c = in_channels
+        if n_rdb < 1:
+            raise ValueError("the generator needs at least one dense block")
         self.residual_scale = residual_scale
 
         def conv():
@@ -79,9 +86,19 @@ class AFIGenerator(nn.Module):
 
     def forward(self, x):
         head, rir, mid, up, tail = self.Generators[0]
-        r = fused_generator_chain(
-            x, head[0].weight, head[0].bias,
-            [blk.weights() for blk in rir.RDBs], self.residual_scale)
+        rs = self.residual_scale
+        if len(rir.RDBs) == 3:
+            r = fused_generator_chain(x, head[0].weight, head[0].bias,
+                                      [blk.weights() for blk in rir.RDBs], rs)
+        else:
+            # the head conv is outside the dense-block kernel: one more
+            # launch of the conv kernel, counted with the path it serves
+            h = y = conv3x3([x.contiguous()], head[0].weight, head[0].bias,
+                            leaky=True, counter="afi_rdb")
+            for blk in rir.RDBs[:-1]:
+                y = fused_rdb(y, blk.weights(), rs)
+            # r = h + rs * RDB_n(y): the RiR residual rides on the last conv
+            r = fused_rdb(y, rir.RDBs[-1].weights(), rs, outer=h, outer_scale=rs)
         return fused_upsample(r, x, mid[0].weight, mid[0].bias,
                               up[0].weight, up[0].bias,
                               tail[0].weight, tail[0].bias)

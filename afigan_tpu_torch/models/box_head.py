@@ -11,11 +11,12 @@ import torch.nn.functional as F
 
 from ..ops.boxes import clip_boxes, nonempty_mask
 from ..ops.nms import batched_nms_padded
-from .layers import Linear, init_weight
+from .layers import Conv2d, Linear, init_weight
 
 
 class FastRCNNConvFCHead(nn.Module):
-    """NUM_CONV 3x3 convs then NUM_FC linears (d2 keys conv{i}, fc{i}).
+    """NUM_CONV 3x3 convs (+ norm, no bias under a norm) then NUM_FC linears,
+    ReLU after each (d2 keys conv{i}, fc{i}).
 
     Pooled features arrive NHWC (R, P, P, C); ``fc1`` keeps d2's weight,
     whose input order is the NCHW flatten (C, P, P), so the features are
@@ -23,24 +24,35 @@ class FastRCNNConvFCHead(nn.Module):
 
     def __init__(self, in_channels: int, pooler_resolution: int,
                  num_conv: int = 0, conv_dim: int = 256, num_fc: int = 2,
-                 fc_dim: int = 1024, device=None):
+                 fc_dim: int = 1024, norm: str = "", device=None):
         super().__init__()
-        if num_conv:
-            raise NotImplementedError(
-                "box head convs are not ported (ROADMAP Queue 1 item 12)")
+        self.num_conv = num_conv
         self.num_fc = num_fc
+        for i in range(num_conv):
+            self.add_module(f"conv{i + 1}", Conv2d(
+                in_channels, conv_dim, 3, padding=1, bias=not norm, norm=norm,
+                device=device))
+            in_channels = conv_dim
         dim = in_channels * pooler_resolution * pooler_resolution
         for i in range(num_fc):
             self.add_module(f"fc{i + 1}", Linear(dim, fc_dim, device=device))
             dim = fc_dim
+        self.out_dim = dim
 
     def init_weights(self, gen: torch.Generator) -> None:
+        for i in range(self.num_conv):
+            m = getattr(self, f"conv{i + 1}")
+            init_weight(m.weight, "msra", gen)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         for i in range(self.num_fc):
             m = getattr(self, f"fc{i + 1}")
             init_weight(m.weight, "xavier", gen)
             nn.init.zeros_(m.bias)
 
     def forward(self, x):
+        for i in range(self.num_conv):
+            x = F.relu(getattr(self, f"conv{i + 1}")(x))
         x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
         for i in range(self.num_fc):
             x = F.relu(getattr(self, f"fc{i + 1}")(x))

@@ -1,9 +1,11 @@
 """Config → model (counterpart of ``afigan_tpu/models/build.py``).
 
-Ported registry entries: ``build_resnet_fpn_sr_backbone`` (ResNet + FPN
-with the AF interpolator) and ``build_resnet_fpn_backbone`` (nearest
-top-down), under ``GeneralizedRCNN`` with ``StandardROIHeads``. Every
-other name raises ``NotImplementedError`` naming the ROADMAP item.
+Ported registry entries: ``build_resnet_fpn_sr_backbone`` /
+``build_resnet_fpn_backbone`` (ResNet + FPN with the AF interpolator /
+nearest top-down) and ``build_swint_bifpn_sr_backbone`` /
+``build_swint_bifpn_backbone`` (Swin + BiFPN), under ``GeneralizedRCNN`` with
+``StandardROIHeads`` or ``CascadeROIHeads``. Every other name raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -11,11 +13,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn as nn
 
+from .bifpn import BiFPN
+from .cascade_roi_heads import CascadeROIHeads
 from .fpn import FPN
 from .meta_arch import GeneralizedRCNN
 from .resnet import build_resnet
 from .roi_heads import StandardROIHeads
+from .swin import build_swin
 
 _TODO = "not ported yet (ROADMAP Queue 1 item 12, the breadth families)"
 _STRIDES = {"res2": 4, "res3": 8, "res4": 16, "res5": 32,
@@ -26,38 +32,58 @@ def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
 
 
-_BACKBONES = {"build_resnet_fpn_sr_backbone": "afi",
-              "build_resnet_fpn_backbone": "nearest"}
+# name → (bottom-up, pyramid, top-down interpolator)
+_BACKBONES = {"build_resnet_fpn_sr_backbone": ("resnet", "fpn", "afi"),
+              "build_resnet_fpn_backbone": ("resnet", "fpn", "nearest"),
+              "build_swint_bifpn_sr_backbone": ("swin", "bifpn", "afi"),
+              "build_swint_bifpn_backbone": ("swin", "bifpn", "nearest")}
 
 
-def build_backbone(cfg, device=None) -> FPN:
+def pyramid_channels(cfg) -> int:
+    pyramid = _BACKBONES.get(cfg.MODEL.BACKBONE.NAME, ("", "fpn"))[1]
+    return (cfg.MODEL.BIFPN if pyramid == "bifpn" else cfg.MODEL.FPN).OUT_CHANNELS
+
+
+def build_backbone(cfg, device=None) -> nn.Module:
     name = cfg.MODEL.BACKBONE.NAME
     if name not in _BACKBONES:
         raise NotImplementedError(f"backbone {name!r} {_TODO}")
-    bottom_up = build_resnet(cfg, device)
-    r = cfg.MODEL.RESNETS
-    chans = {f"res{s}": r.RES2_OUT_CHANNELS * 2 ** (s - 2) for s in range(2, 6)}
+    bottom, pyramid, interp = _BACKBONES[name]
+    afi = dict(afi_n_rdb=cfg.MODEL.AFI.N_RDB, afi_growth_rate=cfg.MODEL.AFI.GROWTH_RATE,
+               afi_residual_scale=cfg.MODEL.AFI.RESIDUAL_SCALE)
+    if bottom == "swin":
+        bottom_up = build_swin(cfg, device)
+        chans = bottom_up.out_channels
+    else:
+        bottom_up = build_resnet(cfg, device)
+        r = cfg.MODEL.RESNETS
+        chans = {f"res{s}": r.RES2_OUT_CHANNELS * 2 ** (s - 2) for s in range(2, 6)}
+    if pyramid == "bifpn":
+        bf = cfg.MODEL.BIFPN
+        return BiFPN(bottom_up, in_channels=chans, in_features=tuple(bf.IN_FEATURES),
+                     out_channels=bf.OUT_CHANNELS, fpn_repeat=bf.FPN_REPEAT, norm=bf.NORM,
+                     interp=interp, device=device, **afi)
     return FPN(
         bottom_up, in_channels=chans, in_features=tuple(cfg.MODEL.FPN.IN_FEATURES),
         in_strides=tuple(_STRIDES[f] for f in cfg.MODEL.FPN.IN_FEATURES),
         out_channels=cfg.MODEL.FPN.OUT_CHANNELS, norm=cfg.MODEL.FPN.NORM,
-        fuse_type=cfg.MODEL.FPN.FUSE_TYPE, interp=_BACKBONES[name],
-        top_block=cfg.MODEL.FPN.TOP_BLOCK, afi_n_rdb=cfg.MODEL.AFI.N_RDB,
-        afi_growth_rate=cfg.MODEL.AFI.GROWTH_RATE,
-        afi_residual_scale=cfg.MODEL.AFI.RESIDUAL_SCALE, device=device)
+        fuse_type=cfg.MODEL.FPN.FUSE_TYPE, interp=interp,
+        top_block=cfg.MODEL.FPN.TOP_BLOCK, device=device, **afi)
 
 
 def build_roi_heads(cfg, device=None) -> StandardROIHeads:
     rh, bh, mh = cfg.MODEL.ROI_HEADS, cfg.MODEL.ROI_BOX_HEAD, cfg.MODEL.ROI_MASK_HEAD
-    if rh.NAME != "StandardROIHeads" or cfg.MODEL.KEYPOINT_ON:
+    if rh.NAME not in ("StandardROIHeads", "CascadeROIHeads") or cfg.MODEL.KEYPOINT_ON:
         raise NotImplementedError(f"ROI heads {rh.NAME!r} / keypoints {_TODO}")
-    return StandardROIHeads(
-        in_channels=cfg.MODEL.FPN.OUT_CHANNELS, num_classes=rh.NUM_CLASSES,
+    if cfg.MODEL.MASK_ON and mh.NORM:
+        raise NotImplementedError(f"a mask head with norm {mh.NORM!r} {_TODO}")
+    common = dict(
+        in_channels=pyramid_channels(cfg), num_classes=rh.NUM_CLASSES,
         in_features=tuple(rh.IN_FEATURES),
         strides=tuple(_STRIDES[f] for f in rh.IN_FEATURES),
         box_pooler_resolution=bh.POOLER_RESOLUTION, box_num_conv=bh.NUM_CONV,
         box_conv_dim=bh.CONV_DIM, box_num_fc=bh.NUM_FC, box_fc_dim=bh.FC_DIM,
-        bbox_reg_weights=tuple(bh.BBOX_REG_WEIGHTS),
+        box_norm=bh.NORM, bbox_reg_weights=tuple(bh.BBOX_REG_WEIGHTS),
         cls_agnostic_bbox_reg=bh.CLS_AGNOSTIC_BBOX_REG, mask_on=cfg.MODEL.MASK_ON,
         mask_pooler_resolution=mh.POOLER_RESOLUTION, mask_num_conv=mh.NUM_CONV,
         mask_conv_dim=mh.CONV_DIM, cls_agnostic_mask=mh.CLS_AGNOSTIC_MASK,
@@ -65,14 +91,27 @@ def build_roi_heads(cfg, device=None) -> StandardROIHeads:
         detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
         sampling_ratio=max(bh.POOLER_SAMPLING_RATIO, 2),
         aligned=bh.POOLER_TYPE != "ROIAlign", device=device)
+    if rh.NAME == "CascadeROIHeads":
+        return CascadeROIHeads(
+            cascade_bbox_reg_weights=tuple(
+                tuple(w) for w in cfg.MODEL.ROI_BOX_CASCADE_HEAD.BBOX_REG_WEIGHTS),
+            **common)
+    return StandardROIHeads(**common)
 
 
-def build_model(cfg, device=None,
+def build_model(cfg, device="cuda",
                 generator: Optional[torch.Generator] = None) -> GeneralizedRCNN:
-    """META_ARCHITECTURE → an eval-mode ``GeneralizedRCNN`` on ``device``.
+    """META_ARCHITECTURE → an eval-mode ``GeneralizedRCNN`` on ``device``:
+    the GPU unless the caller asks for ``"cpu"``. Without a GPU the default
+    raises; nothing carries on silently on the CPU.
     With ``generator``, weights are drawn from it (the JAX package's init
     distributions); otherwise they are torch's defaults, to be replaced by
     ``load_state_dict``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            'build_model: no CUDA device found; pass device="cpu" to run the plain '
+            "PyTorch versions on the CPU")
     arch = cfg.MODEL.META_ARCHITECTURE
     if arch != "GeneralizedRCNN":
         raise NotImplementedError(f"META_ARCHITECTURE {arch!r} {_TODO}")
@@ -85,7 +124,7 @@ def build_model(cfg, device=None,
         anchor_aspect_ratios=tuple(
             tuple(a) for a in cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS),
         anchor_offset=cfg.MODEL.ANCHOR_GENERATOR.OFFSET,
-        rpn_channels=cfg.MODEL.FPN.OUT_CHANNELS,
+        rpn_channels=pyramid_channels(cfg),
         rpn_bbox_reg_weights=tuple(rpn.BBOX_REG_WEIGHTS),
         pre_nms_topk=rpn.PRE_NMS_TOPK_TEST, post_nms_topk=rpn.POST_NMS_TOPK_TEST,
         rpn_nms_thresh=rpn.NMS_THRESH,

@@ -90,13 +90,20 @@ class FrozenBatchNorm2d(nn.Module):
         return x * mul.to(x.dtype) + add.to(x.dtype)
 
 
-def get_norm(norm: str, features: int) -> Optional[nn.Module]:
+def get_norm(norm: str, features: int, bn_eps: float = 1e-5) -> Optional[nn.Module]:
+    """'' | 'FrozenBN' | 'BN' | 'SyncBN'. The port is eval-only, where BN and
+    SyncBN are batch norm over the running statistics: the frozen module,
+    with ``bn_eps`` and d2's BatchNorm keys (weight, bias, running_mean,
+    running_var)."""
     if not norm:
         return None
     if norm == "FrozenBN":
         return FrozenBatchNorm2d(features)
+    if norm in ("BN", "SyncBN"):
+        return FrozenBatchNorm2d(features, eps=bn_eps)
     raise NotImplementedError(
-        f"norm {norm!r}: only FrozenBN is ported (ROADMAP Queue 1 item 12)")
+        f"norm {norm!r}: only FrozenBN, BN and SyncBN (eval) are ported "
+        "(ROADMAP Queue 1 item 12)")
 
 
 # ---------------------------------------------------------------------------
@@ -108,10 +115,10 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
                  dilation=1, groups=1, bias=True, norm: str = "",
-                 device=None):
+                 bn_eps: float = 1e-5, device=None):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding,
                          dilation, groups, bias, device=device)
-        n = get_norm(norm, out_ch)
+        n = get_norm(norm, out_ch, bn_eps)
         if n is not None:
             self.norm = n.to(device)
         else:
@@ -125,6 +132,26 @@ class Conv2d(nn.Conv2d):
         if self.norm is not None:
             y = self.norm(y)
         return y
+
+
+class SeparableConv(nn.Module):
+    """Depthwise 3x3 (stride 1: 'static_same' padding is 1 on every side, no
+    bias) + pointwise 1x1 (bias) + optional norm: the BiFPN primitive
+    (``afigan_tpu/models/layers.py::SeparableConv``). d2 keys ``depthwise``,
+    ``pointwise``, ``norm``."""
+
+    def __init__(self, channels: int, out_ch: int, norm: str = "",
+                 bn_eps: float = 1e-5, device=None):
+        super().__init__()
+        self.depthwise = Conv2d(channels, channels, 3, padding=1, groups=channels,
+                                bias=False, device=device)
+        self.pointwise = Conv2d(channels, out_ch, 1, device=device)
+        n = get_norm(norm, out_ch, bn_eps)
+        self.norm = None if n is None else n.to(device)
+
+    def forward(self, x):
+        y = self.pointwise(self.depthwise(x))
+        return y if self.norm is None else self.norm(y)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

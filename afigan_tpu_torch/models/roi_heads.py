@@ -25,7 +25,7 @@ class StandardROIHeads(nn.Module):
                  strides: Sequence[int] = (4, 8, 16, 32),
                  box_pooler_resolution: int = 7, box_num_conv: int = 0,
                  box_conv_dim: int = 256, box_num_fc: int = 2,
-                 box_fc_dim: int = 1024,
+                 box_fc_dim: int = 1024, box_norm: str = "",
                  bbox_reg_weights: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0),
                  cls_agnostic_bbox_reg: bool = False, mask_on: bool = False,
                  mask_pooler_resolution: int = 14, mask_num_conv: int = 4,
@@ -46,19 +46,25 @@ class StandardROIHeads(nn.Module):
         self.sampling_ratio = sampling_ratio
         self.aligned = aligned
         self.mask_on = mask_on
-        self.box_head = FastRCNNConvFCHead(in_channels, box_pooler_resolution,
-                                           box_num_conv, box_conv_dim,
-                                           box_num_fc, box_fc_dim, device)
-        self.box_predictor = FastRCNNOutputLayers(box_fc_dim, num_classes,
-                                                  cls_agnostic_bbox_reg, device)
+        self._build_box_heads(
+            lambda: FastRCNNConvFCHead(in_channels, box_pooler_resolution, box_num_conv,
+                                       box_conv_dim, box_num_fc, box_fc_dim, box_norm,
+                                       device),
+            lambda dim, agnostic=cls_agnostic_bbox_reg: FastRCNNOutputLayers(
+                dim, num_classes, agnostic, device))
         if mask_on:
             self.mask_head = MaskRCNNConvUpsampleHead(
                 in_channels, num_classes, mask_num_conv, mask_conv_dim,
                 cls_agnostic_mask, device)
 
+    def _build_box_heads(self, make_head, make_predictor) -> None:
+        self.box_head = make_head()
+        self.box_predictor = make_predictor(self.box_head.out_dim)
+
     def init_weights(self, gen: torch.Generator) -> None:
-        self.box_head.init_weights(gen)
-        self.box_predictor.init_weights(gen)
+        for m in self.modules():
+            if isinstance(m, (FastRCNNConvFCHead, FastRCNNOutputLayers)):
+                m.init_weights(gen)
         if self.mask_on:
             self.mask_head.init_weights(gen)
 

@@ -28,6 +28,8 @@ SOURCES = {
     "roi_pool": ("roi_pool.cu",),
     "afi_conv3x3": ("afi_conv3x3.cu", "afi_conv_common.cuh"),
     "afi_upsample": ("afi_upsample.cu", "afi_conv_common.cuh"),
+    "layer_norm": ("layer_norm.cu",),
+    "window_attention": ("window_attention.cu",),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,7 +40,8 @@ PTXAS_LOG: Dict[str, str] = {}
 
 # Launches of the hand-written kernels, by the JAX kernel each replaces.
 # A wrapper adds one where it launches a kernel, and nowhere else.
-LAUNCHES: Dict[str, int] = {"afi_chain": 0, "afi_upsample": 0, "roi_pool": 0}
+LAUNCHES: Dict[str, int] = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0,
+                            "roi_pool": 0, "layer_norm": 0, "window_attention": 0}
 
 
 def reset_launches() -> None:
@@ -118,6 +121,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "afi_upsample":
         fn = lib.afi_subpixel_deconv
         fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
+    elif name == "layer_norm":
+        fn = lib.layer_norm_forward
+        fn.argtypes = [P, P, P, P, I, I, F, I, I, P]
+    elif name == "window_attention":
+        fn = lib.window_attention_forward
+        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F, I, P]
     fn.restype = I
 
 
@@ -131,13 +140,15 @@ def ptr(t) -> Optional[int]:
 
 
 def dtype_code(t) -> int:
+    """The kernels' code for a tensor's (or a torch dtype's) element type."""
     import torch
 
-    if t.dtype == torch.float32:
+    dt = getattr(t, "dtype", t)
+    if dt == torch.float32:
         return 0
-    if t.dtype == torch.bfloat16:
+    if dt == torch.bfloat16:
         return 1
-    raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+    raise TypeError(f"kernels take float32 or bfloat16, got {dt}")
 
 
 def stream_ptr() -> int:

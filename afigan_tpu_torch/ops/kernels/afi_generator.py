@@ -1,6 +1,8 @@
-"""AF-interpolator kernels: the generator chain and its conv-upsample tail.
+"""AF-interpolator kernels: the generator chain, one dense block on its own,
+and the conv-upsample tail.
 
-Port of ``afigan_tpu/ops/pallas/afi_chain.py::fused_generator_chain`` and
+Port of ``afigan_tpu/ops/pallas/afi_chain.py::fused_generator_chain``,
+``afigan_tpu/ops/pallas/afi_rdb.py::fused_rdb`` and
 ``afigan_tpu/ops/pallas/afi_upsample.py::fused_upsample``. Public
 functions take NHWC activations (the JAX functions' layout) and the
 module's torch-layout weights (conv OIHW, transposed conv IOHW).
@@ -15,6 +17,7 @@ selects between them, and there is no fallback on CUDA.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -195,22 +198,44 @@ def subpixel_deconv(x, w_iohw, bias, leaky=True, counter="afi_upsample"):
 # ---------------------------------------------------------------------------
 
 
+def _rdb(conv, y, ws, rs, res2=None, s2=1.0):
+    """One residual dense block: four convs + LReLU over the growing list of
+    sources (the dense concat, never materialised by the kernel), then
+    y + rs * conv5; ``res2 + s2 *`` that where the caller folds an outer
+    residual in."""
+    feats = [y]
+    for w_ in ws[:4]:
+        feats.append(conv(feats, w_, None, leaky=True))
+    return conv(feats, ws[4], None, leaky=False, res1=y, s1=rs, res2=res2, s2=s2)
+
+
 def _chain(conv, x, head_w, head_b, rdb_weights, residual_scale):
     if not rdb_weights:
         raise ValueError("the chain needs at least one dense block")
-    x = x.contiguous()
-    rs = residual_scale
-    head = conv([x], head_w, head_b, leaky=True)
+    head = conv([x.contiguous()], head_w, head_b, leaky=True)
     y = head
     for i, ws in enumerate(rdb_weights):
-        feats = [y]
-        for w_ in ws[:4]:
-            feats.append(conv(feats, w_, None, leaky=True))
         last = i == len(rdb_weights) - 1
-        # block output y + s*c5; the last block also folds the RiR residual
-        y = conv(feats, ws[4], None, leaky=False, res1=y, s1=rs,
-                 res2=head if last else None, s2=rs)
+        # the last block also folds the RiR residual in
+        y = _rdb(conv, y, ws, residual_scale, head if last else None, residual_scale)
     return y
+
+
+def fused_rdb(x, weights, residual_scale=0.2, outer=None, outer_scale=1.0):
+    """One residual dense block (the port of
+    ``afigan_tpu/ops/pallas/afi_rdb.py::fused_rdb``): x (B, H, W, C);
+    weights [w1..w5], w_i (G, C+(i-1)G, 3, 3), w5 (C, C+4G, 3, 3) →
+    y = x + residual_scale * conv5(cat(x, c1..c4)), or
+    outer + outer_scale * y where the caller folds an outer residual (the
+    RiR's) into the last conv's epilogue. Five launches of the conv kernel
+    on the card."""
+    conv = functools.partial(conv3x3, counter="afi_rdb")
+    return _rdb(conv, x.contiguous(), list(weights), residual_scale, outer, outer_scale)
+
+
+def fused_rdb_plain(x, weights, residual_scale=0.2, outer=None, outer_scale=1.0):
+    """The plain version on any device: ``F.conv2d`` over real concats."""
+    return _rdb(conv3x3_plain, x, list(weights), residual_scale, outer, outer_scale)
 
 
 def fused_generator_chain(x, head_w, head_b, rdb_weights, residual_scale=0.2):

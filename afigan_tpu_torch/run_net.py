@@ -3,14 +3,15 @@
 
 Usage:
     python -m afigan_tpu_torch.run_net \\
-        --config-file configs/inference/AFI-GAN_maskrcnn_R_50_FPN.yaml \\
+        --config-file configs/inference/AFI-GAN_cascade_rcnn_swint_BiFPN_ST.yaml \\
         --eval-only [MODEL.WEIGHTS model.pkl] [DATASETS.ROOT datasets] [KEY VALUE ...]
 
 Same surface as the repo's ``run_net.py``: YAML config with ``_BASE_``
 inheritance and dotted overrides, ``DATASETS.TEST[0]`` registered from
 ``DATASETS.ROOT``, then inference and the COCO evaluator. Weights come from
 ``MODEL.WEIGHTS`` (d2 ``.pkl`` / torch ``.pth``) or, when empty, from a
-seeded generator (``--seed``). Runs on ``cuda`` when a GPU is present.
+seeded generator (``--seed``). Runs on the GPU and fails without one;
+``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ def parse_args(argv=None):
     p.add_argument("--config-file", required=True)
     p.add_argument("--eval-only", action="store_true")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", default="cuda",
+                   help='"cuda" (the default; fails without a GPU) or "cpu"')
     p.add_argument("opts", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
@@ -54,7 +56,7 @@ def load_weights(model: torch.nn.Module, path: str) -> None:
 
 def main(args):
     from .config import get_cfg
-    from .data import shared
+    from .data import coco
     from .engine.inference import run_inference
     from .models.build import build_model
 
@@ -64,7 +66,6 @@ def main(args):
     cfg = get_cfg()
     cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts)
-    coco = shared("coco")
     coco.register_default_datasets(cfg.DATASETS.ROOT)
     dataset = coco.get_dataset(cfg.DATASETS.TEST[0])
 

@@ -7,15 +7,17 @@ arrays serves both packages: ``state_dict_to_variables`` maps a port
 JAX tree (e.g. from ``model.init``) back into the port. Layouts undone:
 HWIO→OIHW (conv), HWIO(in,out)→IOHW (transposed conv), (in,out)→(out,in)
 (linear), and the HWC→CHW input-order permutation of the first box FC
-(``t_linear_from_chw``). Covers the ResNet/FPN/AFI/RPN/Standard-ROI-heads
-trees of the Mask R-CNN main path.
+(``t_linear_from_chw``). Covers the ResNet / Swin bottom-ups, the FPN and
+BiFPN pyramids with the AF interpolator, the RPN, and the standard and
+cascade ROI heads (batch-norm statistics from ``batch_stats``).
 
-Numpy only; ``load_state_dict`` (d2 ``.pkl`` / torch ``.pth``) is the JAX
-package's numpy loader, re-exported for ``MODEL.WEIGHTS``.
+Numpy only; ``load_state_dict`` reads d2 / Caffe2 ``.pkl`` and torch ``.pth``
+files for ``MODEL.WEIGHTS``.
 """
 
 from __future__ import annotations
 
+import pickle
 import re
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
@@ -25,11 +27,15 @@ import numpy as np
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:
     """Load a d2 ``.pkl`` or torch ``.pth`` checkpoint into name→ndarray."""
     if path.endswith(".pkl"):
-        # the Caffe2-name conversion lives in the JAX package's numpy
-        # module (no jax import); only needed for ImageNet .pkl files
-        from afigan_tpu.utils.converters import load_state_dict as _load
-
-        return _load(path)
+        with open(path, "rb") as f:
+            data = pickle.load(f, encoding="latin1")
+        data = data.get("model", data)
+        data = data.get("blobs", data)
+        out = {k: np.asarray(v) for k, v in data.items()
+               if not (k.endswith("_momentum") or k.startswith("__"))}
+        if any(k.endswith(("_w", "_b")) or "branch" in k for k in out):
+            out = convert_c2_resnet_names(out)
+        return out
     import torch
 
     data = torch.load(path, map_location="cpu", weights_only=False)
@@ -38,6 +44,24 @@ def load_state_dict(path: str) -> Dict[str, np.ndarray]:
             data = data[key]
     return {k: v.detach().numpy() if hasattr(v, "detach") else np.asarray(v)
             for k, v in data.items() if hasattr(v, "shape")}
+
+
+def convert_c2_resnet_names(weights: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Caffe2 ImageNet ResNet names → d2 names (stem / res{s}.{i}.conv{j})."""
+    stem = {"conv1_w": "stem.conv1.weight", "res_conv1_bn_s": "stem.conv1.norm.weight",
+            "res_conv1_bn_b": "stem.conv1.norm.bias"}
+    suffix = {"w": "weight", "bn_s": "norm.weight", "bn_b": "norm.bias"}
+    out = {}
+    for k, v in weights.items():
+        name = stem.get(k, k)
+        m = re.match(r"^res(\d)_(\d+)_branch([12])([a-c]?)_(w|bn_s|bn_b)$", k)
+        if m:
+            stage, block, branch, sub, kind = m.groups()
+            layer = "shortcut" if branch == "1" else {"a": "conv1", "b": "conv2",
+                                                       "c": "conv3"}[sub]
+            name = f"res{stage}.{block}.{layer}.{suffix[kind]}"
+        out[name] = v
+    return out
 
 
 def inv_conv(w):  # HWIO -> OIHW
@@ -99,11 +123,72 @@ def _generator_key(path: Tuple[str, ...]) -> Optional[Tuple[str, Callable]]:
     return None
 
 
+def _swin_key(p: Tuple[str, ...]) -> Optional[Tuple[str, Callable]]:
+    """bottom_up subtree path of a Swin → d2 key (the inverse of the Swin
+    block of ``afigan_tpu.utils.converters.translate_d2_key``)."""
+    pre = "backbone.bottom_up."
+    ln = {"scale": "weight", "bias": "bias"}
+    if p[0] == "patch_embed":
+        name, tf = _conv_leaf(p[1])
+        return f"{pre}patch_embed.proj.{name}", tf
+    if p[0] == "patch_norm":
+        return f"{pre}patch_embed.norm.{ln[p[1]]}", ident
+    m = re.match(r"^norm_stage(\d)$", p[0])
+    if m:
+        return f"{pre}norm{int(m.group(1)) - 2}.{ln[p[1]]}", ident
+    m = re.match(r"^stage(\d)/(block(\d+)|downsample)$", p[0])
+    if not m:
+        return None
+    layer = f"{pre}layers.{int(m.group(1)) - 2}."
+    if m.group(2) == "downsample":
+        if p[1] == "reduction":
+            return layer + "downsample.reduction.weight", inv_linear
+        return layer + f"downsample.norm.{ln[p[2]]}", ident
+    blk = layer + f"blocks.{m.group(3)}."
+    if p[1] in ("norm1", "norm2"):
+        return blk + f"{p[1]}.{ln[p[2]]}", ident
+    if p[1] == "attn" and p[2] == "relative_position_bias_table":
+        return blk + "attn.relative_position_bias_table", ident
+    name = {"attn": "attn." + p[2], "mlp_fc1": "mlp.fc1", "mlp_fc2": "mlp.fc2"}.get(p[1])
+    if name is None:
+        return None
+    if p[-1] == "kernel":
+        return blk + name + ".weight", inv_linear
+    return blk + name + ".bias", ident
+
+
+def _bifpn_key(p: Tuple[str, ...]) -> Optional[Tuple[str, Callable]]:
+    """pyramid subtree path of a BiFPN → d2 key without the ``backbone.``."""
+    m = re.match(r"^(lateral\d|p\d_skip|p6_resample)(_bn)?$", p[0])
+    if m:
+        name, bn = m.groups()
+        if name == "p6_resample":
+            base, conv, norm = "before_bifpn.top_block.p6", ".conv", ".norm"
+        else:
+            base, conv, norm = f"before_bifpn.{name}", ".0", ".1"
+        if bn:
+            return f"{base}{norm}.{_NORM_LEAF[p[1]]}", ident
+        leaf, tf = _conv_leaf(p[2])
+        return f"{base}{conv}.{leaf}", tf
+    m = re.match(r"^layer(\d+)_(conv\d_(?:up|down)|p\d_w[12])$", p[0])
+    if not m:
+        return None
+    base = f"BiFPNLayer_{m.group(1)}_{m.group(2)}"
+    if len(p) == 1:
+        return base, ident
+    if p[1] == "norm":
+        return f"{base}.norm.{_NORM_LEAF[p[2]]}", ident
+    leaf, tf = _conv_leaf(p[2])
+    return f"{base}.{p[1]}.{leaf}", tf
+
+
 def translate_path(path: Tuple[str, ...],
-                   fc1_channels: int) -> Optional[Tuple[str, Callable]]:
-    """Flax params path → (d2 key, inverse transform), or None."""
+                   fc1_channels: Dict[str, int]) -> Optional[Tuple[str, Callable]]:
+    """Flax params / batch_stats path → (d2 key, inverse transform), or
+    None. ``fc1_channels``: per box head (its flax name), the channels of
+    the map that its first FC flattens."""
     p = path
-    if p[0] == "backbone" and p[1] == "bottom_up":
+    if p[0] == "backbone" and p[1] == "bottom_up" and p[2].startswith(("stem", "res")):
         # ("stem"|"resN/blockK", conv, "conv"|"norm", leaf)
         blk, layer = p[2], p[3]
         if blk == "stem":
@@ -118,7 +203,12 @@ def translate_path(path: Tuple[str, ...],
         if p[4] == "norm":
             return f"{prefix}.norm.{_NORM_LEAF[p[5]]}", ident
         return None
+    if p[0] == "backbone" and p[1] == "bottom_up" and not p[2].startswith(("stem", "res")):
+        return _swin_key(p[2:])
     if p[0] == "backbone" and p[1] == "pyramid":
+        bifpn = _bifpn_key(p[2:])
+        if bifpn is not None:
+            return "backbone." + bifpn[0], bifpn[1]
         if p[2] == "srf_module":
             out = _generator_key(p[3:])
             if out is None:
@@ -133,16 +223,25 @@ def translate_path(path: Tuple[str, ...],
         return f"proposal_generator.rpn_head.{p[1]}.{name}", tf
     if p[0] == "roi_heads":
         head = p[1]
+        m = re.match(r"^(box_head|box_predictor)(?:_(\d))?$", head)
+        if m:  # the cascade stage index becomes a ModuleList index
+            head = m.group(1)
+            prefix = f"roi_heads.{head}." + (f"{m.group(2)}." if m.group(2) else "")
         if head == "box_head" and re.match(r"^fc\d$", p[2]):
             if p[3] == "bias":
-                return f"roi_heads.box_head.{p[2]}.bias", ident
+                return f"{prefix}{p[2]}.bias", ident
             if p[2] == "fc1":
-                return ("roi_heads.box_head.fc1.weight",
-                        lambda w: inv_linear_to_chw(w, fc1_channels))
-            return f"roi_heads.box_head.{p[2]}.weight", inv_linear
+                return (f"{prefix}fc1.weight",
+                        lambda w: inv_linear_to_chw(w, fc1_channels[p[1]]))
+            return f"{prefix}{p[2]}.weight", inv_linear
+        if head == "box_head" and re.match(r"^conv\d$", p[2]):
+            if p[3] == "conv":
+                name, tf = _conv_leaf(p[4])
+                return f"{prefix}{p[2]}.{name}", tf
+            return f"{prefix}{p[2]}.norm.{_NORM_LEAF[p[4]]}", ident
         if head == "box_predictor":
             name = "weight" if p[3] == "kernel" else "bias"
-            return (f"roi_heads.box_predictor.{p[2]}.{name}",
+            return (f"{prefix}{p[2]}.{name}",
                     inv_linear if name == "weight" else ident)
         if head == "mask_head":
             if p[2] == "deconv":
@@ -176,28 +275,36 @@ def generator_state_dict(params) -> Dict[str, np.ndarray]:
     return out
 
 
-def variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
-    """flax ``{"params": ...}`` (numpy or jax arrays) → {d2 key: ndarray}.
+def _fc1_channels(params) -> Dict[str, int]:
+    """Per box head: the output width of its last conv, or without convs the
+    pyramid's width (the RPN conv's input)."""
+    out = {}
+    for name, head in params.get("roi_heads", {}).items():
+        if name.startswith("box_head"):
+            convs = sorted(k for k in head if re.match(r"^conv\d$", k))
+            kernel = (head[convs[-1]] if convs else params["proposal_generator"]["conv"]
+                      )["conv"]["kernel"]
+            out[name] = int(np.shape(kernel)[-1 if convs else 2])
+    return out
 
-    Raises KeyError naming any parameter path the main-path mapping does
-    not know, so a silently-dropped weight cannot pass a strict load."""
-    params = variables["params"]
-    fc1_channels = 256
-    try:
-        # fc1 consumes the pooled p2..p5 maps: the FPN output width
-        fc1_channels = int(np.shape(
-            params["backbone"]["pyramid"]["fpn_output2"]["conv"]["kernel"])[-1])
-    except KeyError:
-        pass
+
+def variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
+    """flax ``{"params": ..., "batch_stats": ...}`` (numpy or jax arrays) →
+    {d2 key: ndarray}.
+
+    Raises KeyError naming any path the mapping does not know, so a
+    silently-dropped weight cannot pass a strict load."""
+    fc1_channels = _fc1_channels(variables["params"])
     out: Dict[str, np.ndarray] = {}
     unknown = []
-    for path, leaf in _leaves(params):
-        tr = translate_path(path, fc1_channels)
-        if tr is None:
-            unknown.append("/".join(path))
-            continue
-        key, tf = tr
-        out[key] = tf(np.asarray(leaf, np.float32))
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _leaves(variables.get(coll, {})):
+            tr = translate_path(path, fc1_channels)
+            if tr is None:
+                unknown.append("/".join(path))
+                continue
+            key, tf = tr
+            out[key] = tf(np.asarray(leaf, np.float32))
     if unknown:
-        raise KeyError(f"no d2 name for flax params: {unknown[:8]}")
+        raise KeyError(f"no d2 name for flax variables: {unknown[:8]}")
     return out

@@ -3,25 +3,39 @@
 
     python3 chip_smoke.py            # one GPU, no arguments
 
-Phases, always all four (any failure exits non-zero; nothing falls back
-to the CPU):
-  1. build    compile every CUDA kernel of the path from ``afigan_tpu_torch/csrc``
-              (one nvcc per source, in parallel); print the card and its power limit
-  2. kernels  each kernel against its plain PyTorch version at the main path's
-              shapes (832x1344 canvas, batch 2), float32 with TF32 off and bfloat16;
-              error and median CUDA-event time of both. In bfloat16 each of the
-              generator's 19 launches is also held, on its own inputs, against
-              the float32 plain conv at one rounding of its output
+Phases, always all (any failure exits non-zero; nothing falls back to the
+CPU):
+  1. build    compile every CUDA kernel from ``afigan_tpu_torch/csrc`` (one nvcc
+              per source, in parallel); print the card and its power limit
+  2. kernels  each of the six kernels against its plain PyTorch version at the
+              shapes of the path that runs it, float32 with TF32 off and
+              bfloat16: error, median CUDA-event time of both and of the one
+              PyTorch call that computes the same function where there is one
+              (``F.layer_norm``, ``scaled_dot_product_attention``: yardsticks,
+              used nowhere in the port), and the least time the card could
+              take (bytes over 3.35 TB/s against operations over 989 TFLOP/s in
+              bf16, 67 in fp32). In bfloat16 each of the generator's 19
+              launches is also held, on its own inputs, against the float32
+              plain conv at one rounding of its output, and every bf16 bound
+              must reject a plain output with a part taken out
   3. slice    Mask R-CNN R-50-FPN + AF interpolator at full width (bf16, random
-              weights from a seeded torch.Generator) through ``build_model`` and
-              ``predict`` on random-pixel batches; launch counts of every kernel
-              in that run, ms per batch (median and range), peak memory, one
-              batch under torch.profiler and split by layer; then the same
-              with normalised pixels and no score threshold, so that the heads
-              see 100 boxes per image, profiled as well
-  4. card_vs_cpu  the same full-width model and weights in float32 (TF32 off) on a
-              small canvas on the GPU (kernels) and on the CPU (plain versions);
-              detections must agree at the golden-regression tolerances
+              weights from a seeded torch.Generator) through ``build_model``
+              and ``predict`` on random-pixel batches of an 832x1344 canvas;
+              launch counts of every kernel in that run, ms per batch (median
+              and range), peak memory, one batch under torch.profiler and split
+              by layer; then the same with normalised pixels and no score
+              threshold, so that the heads see 100 boxes per image; then one
+              batch of the same model with ``MODEL.AFI.N_RDB 1``, the
+              configuration whose generator runs ``fused_rdb``
+  4. slice_swin  Cascade R-CNN, Swin (embed 192, depths 2-2-18-2, window 12) +
+              BiFPN (7 layers, shared AF interpolator) at full width from the
+              flagship YAML, 896x1408 canvas, batch 2, bf16, the same two
+              traffics, launch counts asserted per batch (24 window attentions,
+              55 LayerNorms, 28 generator calls, 3 pooler calls)
+  5. card_vs_cpu  for each of the two models in float32 (TF32 off) on a small
+              canvas: the GPU (kernels) and the CPU (plain versions) on the
+              same weights; detections must agree at the golden-regression
+              tolerances. The Swin model is narrow (embed 32, window 4)
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -36,14 +50,21 @@ import time
 
 import numpy as np
 
-# kernel name → (port source, the TPU kernel it replaces)
+# kernel name → (port source, the TPU kernel it replaces, the path whose
+# launches and shapes its entry of the JSON line reports)
 KERNELS = {
     "afi_chain": ("afigan_tpu_torch/csrc/afi_conv3x3.cu",
-                  "afigan_tpu/ops/pallas/afi_chain.py:180"),
+                  "afigan_tpu/ops/pallas/afi_chain.py:180", "r50"),
     "afi_upsample": ("afigan_tpu_torch/csrc/afi_upsample.cu",
-                     "afigan_tpu/ops/pallas/afi_upsample.py:159"),
+                     "afigan_tpu/ops/pallas/afi_upsample.py:159", "r50"),
     "roi_pool": ("afigan_tpu_torch/csrc/roi_pool.cu",
-                 "afigan_tpu/ops/pallas/roi_pool.py:81"),
+                 "afigan_tpu/ops/pallas/roi_pool.py:81", "r50"),
+    "afi_rdb": ("afigan_tpu_torch/csrc/afi_conv3x3.cu",
+                "afigan_tpu/ops/pallas/afi_rdb.py:194", "r50_n_rdb1"),
+    "window_attention": ("afigan_tpu_torch/csrc/window_attention.cu",
+                         "afigan_tpu/ops/pallas/window_attention.py:85", "swin"),
+    "layer_norm": ("afigan_tpu_torch/csrc/layer_norm.cu",
+                   "afigan_tpu/ops/pallas/layer_norm.py:49", "swin"),
 }
 
 # max|kernel - plain| <= rel * max|plain| + abs
@@ -54,6 +75,15 @@ TOL = {
     ("gen", "bfloat16"): (3e-2, 0.0),
     ("pool", "float32"): (1e-4, 1e-5),
     ("pool", "bfloat16"): (1e-2, 0.0),
+    # both versions compute in float32 and round once to bf16: they differ by
+    # one bf16 step (2^-8 relative) where the float32 values straddle a
+    # rounding boundary
+    ("ln", "float32"): (1e-4, 1e-5),
+    ("ln", "bfloat16"): (1e-2, 0.0),
+    # the probabilities round to bf16 in both versions (2^-9 relative each,
+    # averaging out over the 144-term sum), then the output rounds once
+    ("attn", "float32"): (1e-4, 1e-5),
+    ("attn", "bfloat16"): (1e-2, 0.0),
 }
 # one bfloat16 launch of the generator against the float32 plain conv on the
 # same bf16 values: the kernel accumulates in float32 and rounds once, so
@@ -63,13 +93,63 @@ STAGE_REL, STAGE_ABS = 2.0 ** -8, 1e-4
 # the test-time pixel std of tests/test_golden_regression.py: random weights
 # then give non-degenerate class scores
 GOLDEN_PIXEL_STD = [57.375, 57.12, 58.395]
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory bytes/s, and operations/s by the type of the kernel's inputs
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+ELT = {"bfloat16": 2, "float32": 4}
+DTYPES = ("float32", "bfloat16")
+
+R50_CANVAS, SWIN_CANVAS = (832, 1344), (896, 1408)
+SIZES = [(800, 1333), (800, 1067)]
+# generator inputs (H, W) per batch and how often each is called
+GEN_LEVELS = {"r50": [((26, 42), 1), ((52, 84), 1), ((104, 168), 1)],
+              "swin": [((7, 11), 7), ((14, 22), 7), ((28, 44), 7), ((56, 88), 7)]}
+
+
+class Tally:
+    """Sums over the calls that one batch of a path makes of one kernel."""
+
+    def __init__(self):
+        self.ms = self.plain_ms = self.bytes_s = self.ops_s = self.bound_s = 0.0
+        self.library_ms = None
+        self.err = 0.0
+        self.calls = 0
+
+    def add(self, ms, plain_ms, nbytes, ops, dtype_name, err, count=1, library_ms=None):
+        tb, to = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype_name]
+        self.ms += count * ms
+        self.plain_ms += count * plain_ms
+        self.bytes_s += count * tb
+        self.ops_s += count * to
+        self.bound_s += count * max(tb, to)
+        if library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + count * library_ms
+        self.err = max(self.err, err)
+        self.calls += count
+
+    def summary(self):
+        return {"ms": self.ms, "plain_ms": self.plain_ms,
+                "bound_ms": 1000 * self.bound_s,
+                "bound_by": "bytes" if self.bytes_s >= self.ops_s else "operations",
+                "library_ms": self.library_ms, "max_abs_err": self.err,
+                "calls": self.calls}
+
+
+def tally(results, name, path, dtype_name) -> Tally:
+    return results[name].setdefault("tallies", {}).setdefault((path, dtype_name), Tally())
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def median_ms(fn, iters=10, warmup=2):
+def median_ms(fn, iters=10, warmup=2, inner=4):
+    """Median over ``iters`` CUDA-event timings of ``inner`` calls in a row,
+    per call. A call shorter than its own enqueue (Python wrapper, ctypes,
+    launch: tens of microseconds) measures the enqueue, for the kernel, its
+    plain version and the library call alike; the profiled batch of the
+    slice phases gives such a kernel's device time."""
     import torch
 
     for _ in range(warmup):
@@ -80,10 +160,11 @@ def median_ms(fn, iters=10, warmup=2):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / inner)
     return float(np.median(times))
 
 
@@ -200,88 +281,285 @@ def _boxes(n_img, n, canvas_hw, gen, device):
     return bx.to(device)
 
 
-def phase_kernels(results):
+def _chain_work(b, h, w, c, g, n_rdb, elt):
+    """(bytes, operations) of the generator chain as one function: x and the
+    weights read once, r written once; two operations per multiply-add."""
+    cc = c * c + n_rdb * (sum((c + i * g) * g for i in range(4)) + (c + 4 * g) * c)
+    px = b * h * w
+    return elt * (2 * px * c + 9 * cc), 2 * 9 * px * cc
+
+
+def _upsample_work(b, h, w, c, elt):
+    """mid conv + transposed conv (4 phases of 9 taps) + tail conv at 2H x 2W;
+    r and x read, the 2H x 2W output written."""
+    px = b * h * w
+    return elt * (2 * px * c + 4 * px * c + (9 + 36 + 9) * c * c), 2 * 9 * (1 + 4 + 4) * px * c * c
+
+
+def kernels_generator(results):
+    """afi_chain and afi_upsample at the generator's shapes on both paths,
+    and afi_rdb (one dense block) at the R-50 path's."""
     import torch
 
     from afigan_tpu_torch.ops.kernels import afi_generator as ag
-    from afigan_tpu_torch.ops.kernels.roi_pool import roi_pool, roi_pool_plain
-    from afigan_tpu_torch.ops.roi_align import assign_boxes_to_levels
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     B, C, G = 2, 256, 32
-    canvas = (832, 1344)
-    levels_hw = {"p5": (26, 42), "p4": (52, 84), "p3": (104, 168)}
     head, rdbs, mid, up, tail = _gen_weights(C, G, 3, gen, dev)
-    for dtype_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        ms = {"afi_chain": [0.0, 0.0], "afi_upsample": [0.0, 0.0]}
-        for lvl, (h, w) in levels_hw.items():
-            x = torch.randn((B, h, w, C), generator=gen).to(dev, dt)
-            chain_k = lambda: ag.fused_generator_chain(x, *head, rdbs, 0.2)  # noqa: E731
-            chain_p = lambda: ag.fused_generator_chain_plain(x, *head, rdbs, 0.2)  # noqa: E731
-            r_k, r_p = chain_k(), chain_p()
-            torch.cuda.synchronize()
-            e1 = compare(f"afi_chain {dtype_name} {lvl} {tuple(x.shape)}", r_k, r_p,
-                         "gen", dtype_name)
-            up_args = (*mid, *up, *tail)
-            up_k = lambda: ag.fused_upsample(r_p, x, *up_args)  # noqa: E731
-            up_p = lambda: ag.fused_upsample_plain(r_p, x, *up_args)  # noqa: E731
-            u_k, u_p = up_k(), up_p()
-            torch.cuda.synchronize()
-            e2 = compare(f"afi_upsample {dtype_name} {lvl}", u_k, u_p, "gen", dtype_name)
-            if dt == torch.bfloat16:
-                no_rdb = [[*ws[:4], torch.zeros_like(ws[4])] for ws in rdbs]
-                reject(f"afi_chain plain without its dense blocks {lvl}",
-                       ag.fused_generator_chain_plain(x, *head, no_rdb, 0.2), r_p,
-                       "gen", dtype_name)
-                reject(f"afi_upsample plain with a zero deconv {lvl}",
-                       ag.fused_upsample_plain(r_p, x, *mid, torch.zeros_like(up[0]),
-                                               torch.zeros_like(up[1]), *tail), u_p,
-                       "gen", dtype_name)
-                ratio, where = check_launches(x, head, rdbs, mid, up, tail)
-                log(f"  afi launches bf16 {lvl}: all 19 within one rounding, "
-                    f"worst {ratio:.3f}x the bound ({where})")
-            t = [median_ms(chain_p), median_ms(chain_k), median_ms(up_p), median_ms(up_k)]
-            log(f"  {lvl} {dtype_name}: chain kernel {t[1]:.3f} ms plain {t[0]:.3f} ms; "
-                f"upsample kernel {t[3]:.3f} ms plain {t[2]:.3f} ms")
-            ms["afi_chain"][0] += t[1]
-            ms["afi_chain"][1] += t[0]
-            ms["afi_upsample"][0] += t[3]
-            ms["afi_upsample"][1] += t[2]
-            for name, e in (("afi_chain", e1), ("afi_upsample", e2)):
-                results[name].setdefault(f"err_{dtype_name}", []).append(e)
-        for name, (k, p) in ms.items():
-            results[name][f"ms_{dtype_name}"] = k
-            results[name][f"plain_ms_{dtype_name}"] = p
-        del x, r_k, r_p, u_k, u_p
+    up_args = (*mid, *up, *tail)
+    for dtype_name in DTYPES:
+        dt = getattr(torch, dtype_name)
+        elt = ELT[dtype_name]
+        for path, levels in GEN_LEVELS.items():
+            if path == "swin" and dtype_name == "float32":
+                continue  # the Swin slice runs in bf16; fp32 is timed at the R-50 shapes
+            for (h, w), count in levels:
+                x = torch.randn((B, h, w, C), generator=gen).to(dev, dt)
+                tag = f"{dtype_name} {path} {h}x{w}"
+                chain_k = lambda: ag.fused_generator_chain(x, *head, rdbs, 0.2)  # noqa: E731
+                chain_p = lambda: ag.fused_generator_chain_plain(x, *head, rdbs, 0.2)  # noqa: E731
+                r_k, r_p = chain_k(), chain_p()
+                torch.cuda.synchronize()
+                e1 = compare(f"afi_chain {tag}", r_k, r_p, "gen", dtype_name)
+                up_k = lambda: ag.fused_upsample(r_p, x, *up_args)  # noqa: E731
+                up_p = lambda: ag.fused_upsample_plain(r_p, x, *up_args)  # noqa: E731
+                u_k, u_p = up_k(), up_p()
+                torch.cuda.synchronize()
+                e2 = compare(f"afi_upsample {tag}", u_k, u_p, "gen", dtype_name)
+                if dtype_name == "bfloat16":
+                    no_rdb = [[*ws[:4], torch.zeros_like(ws[4])] for ws in rdbs]
+                    reject(f"afi_chain plain without its dense blocks {tag}",
+                           ag.fused_generator_chain_plain(x, *head, no_rdb, 0.2), r_p,
+                           "gen", dtype_name)
+                    reject(f"afi_upsample plain with a zero deconv {tag}",
+                           ag.fused_upsample_plain(r_p, x, *mid, torch.zeros_like(up[0]),
+                                                   torch.zeros_like(up[1]), *tail), u_p,
+                           "gen", dtype_name)
+                    ratio, where = check_launches(x, head, rdbs, mid, up, tail)
+                    log(f"  afi launches {tag}: all 19 within one rounding, "
+                        f"worst {ratio:.3f}x the bound ({where})")
+                t = [median_ms(chain_p), median_ms(chain_k), median_ms(up_p), median_ms(up_k)]
+                log(f"  {tag}: chain kernel {t[1]:.3f} ms plain {t[0]:.3f} ms; "
+                    f"upsample kernel {t[3]:.3f} ms plain {t[2]:.3f} ms")
+                tally(results, "afi_chain", path, dtype_name).add(
+                    t[1], t[0], *_chain_work(B, h, w, C, G, 3, elt), dtype_name, e1, count)
+                tally(results, "afi_upsample", path, dtype_name).add(
+                    t[3], t[2], *_upsample_work(B, h, w, C, elt), dtype_name, e2, count)
+                if path != "r50":
+                    continue
+                # one dense block at the same inputs: the N_RDB 1 generator's kernel
+                ws = rdbs[0]
+                rdb_k = lambda: ag.fused_rdb(x, ws, 0.2)  # noqa: E731
+                rdb_p = lambda: ag.fused_rdb_plain(x, ws, 0.2)  # noqa: E731
+                o_k, o_p = rdb_k(), rdb_p()
+                torch.cuda.synchronize()
+                e3 = compare(f"afi_rdb {tag}", o_k, o_p, "gen", dtype_name)
+                if dtype_name == "bfloat16":
+                    reject(f"afi_rdb plain without its last conv {tag}",
+                           ag.fused_rdb_plain(x, [*ws[:4], torch.zeros_like(ws[4])], 0.2),
+                           o_p, "gen", dtype_name)
+                tk, tp = median_ms(rdb_k), median_ms(rdb_p)
+                log(f"  {tag}: rdb kernel {tk:.3f} ms plain {tp:.3f} ms")
+                nb, ops = _chain_work(B, h, w, C, G, 1, elt)
+                cc = 9 * C * C  # _chain_work counts a head conv; the block has none
+                tally(results, "afi_rdb", "r50_n_rdb1", dtype_name).add(
+                    tk, tp, nb - elt * cc, ops - 2 * B * h * w * cc, dtype_name, e3, count)
+    # the N_RDB 1 generator end to end, kernels against plain versions
+    from afigan_tpu_torch.models.afi import AFIGenerator
 
-    # ---- ROI pool at the box (P=7, 2x1000) and mask (P=14, 2x100) shapes
-    strides = (4, 8, 16, 32)
-    for dtype_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        total_k = total_p = 0.0
-        for c, p, n in ((256, 7, 1000), (256, 14, 100), (160, 7, 100)):
+    g1 = AFIGenerator(C, 1, G, device=dev)
+    g1.init_weights(torch.Generator().manual_seed(1))
+    for m in g1.modules():  # Kaiming scale, as _gen_weights
+        if hasattr(m, "weight"):
+            m.weight.data *= 10.0
+    x = torch.randn((B, 52, 84, C), generator=gen)
+    with torch.inference_mode():
+        got = g1(x.to(dev))
+        want = g1.cpu()(x)
+    compare("AFIGenerator N_RDB 1 float32, card vs CPU", got.cpu(), want, "gen", "float32")
+
+
+def kernels_roi_pool(results):
+    import torch
+
+    from afigan_tpu_torch.ops.kernels.roi_pool import roi_pool, roi_pool_plain
+    from afigan_tpu_torch.ops.roi_align import assign_boxes_to_levels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    B, S = 2, 2
+    # (path, canvas, strides, channels, P, ROIs per image, calls per batch)
+    cases = [("r50", R50_CANVAS, (4, 8, 16, 32), 256, 7, 1000, 1),
+             ("r50", R50_CANVAS, (4, 8, 16, 32), 256, 14, 100, 1),
+             (None, R50_CANVAS, (4, 8, 16, 32), 160, 7, 100, 0),
+             ("swin", SWIN_CANVAS, (8, 16, 32, 64), 256, 7, 1000, 3)]
+    for dtype_name in DTYPES:
+        dt = getattr(torch, dtype_name)
+        for path, canvas, strides, c, p, n, count in cases:
             feats = [torch.randn((B, canvas[0] // s, canvas[1] // s, c),
                                  generator=gen).to(dev, dt) for s in strides]
             boxes = _boxes(B, n, canvas, gen, dev)
-            lv = assign_boxes_to_levels(boxes, 2, 5)
-            fk = lambda: roi_pool(feats, boxes, lv, strides, p, 2, True)  # noqa: E731
-            fp = lambda: roi_pool_plain(feats, boxes, lv, strides, p, 2, True)  # noqa: E731
+            lo = int(np.log2(strides[0]))
+            lv = assign_boxes_to_levels(boxes, lo, lo + len(strides) - 1)
+            fk = lambda: roi_pool(feats, boxes, lv, strides, p, S, True)  # noqa: E731
+            fp = lambda: roi_pool_plain(feats, boxes, lv, strides, p, S, True)  # noqa: E731
             o_k, o_p = fk(), fp()
             torch.cuda.synchronize()
-            e = compare(f"roi_pool {dtype_name} C={c} P={p} N={B}x{n}", o_k, o_p,
-                        "pool", dtype_name)
+            tag = f"{dtype_name} {path or 'extra'} C={c} P={p} N={B}x{n}"
+            e = compare(f"roi_pool {tag}", o_k, o_p, "pool", dtype_name)
             tk, tp = median_ms(fk), median_ms(fp)
-            log(f"  roi_pool {dtype_name} C={c} P={p}: kernel {tk:.3f} ms plain {tp:.3f} ms")
-            results["roi_pool"].setdefault(f"err_{dtype_name}", []).append(e)
-            if c == 256:  # the main path's two calls
-                total_k += tk
-                total_p += tp
-        results["roi_pool"][f"ms_{dtype_name}"] = total_k
-        results["roi_pool"][f"plain_ms_{dtype_name}"] = total_p
-    torch.backends.cudnn.allow_tf32 = True
+            log(f"  roi_pool {tag}: kernel {tk:.3f} ms plain {tp:.3f} ms")
+            if path is None:
+                continue
+            # what this run's boxes need: 4 corner reads per sample, but no
+            # more than the maps themselves; the float32 output; the boxes
+            samples = B * n * p * p * S * S
+            read = min(4 * samples * c, sum(f.numel() for f in feats)) * ELT[dtype_name]
+            nbytes = read + B * n * p * p * c * 4 + B * n * 20
+            tally(results, "roi_pool", path, dtype_name).add(
+                tk, tp, nbytes, 2 * 4 * samples * c, "float32", e, count)
+
+
+def swin_stage_shapes(canvas=SWIN_CANVAS, batch=2, embed=192, depths=(2, 2, 18, 2),
+                      heads=(6, 12, 24, 48), ws=12):
+    """Per Swin stage at the flagship widths: (H, W, C, heads, depth, padded
+    H, padded W)."""
+    h, w = canvas[0] // 4, canvas[1] // 4
+    out = []
+    for i, (depth, nh) in enumerate(zip(depths, heads)):
+        hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+        out.append((h, w, embed * 2 ** i, nh, depth, hp, wp))
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return out
+
+
+def kernels_layer_norm(results):
+    import torch
+    import torch.nn.functional as F
+
+    from afigan_tpu_torch.ops.kernels.layer_norm import (fused_layer_norm,
+                                                         fused_layer_norm_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    B = 2
+    stages = swin_stage_shapes()
+    # (rows, C) → calls per batch: the patch norm, two per block, one per
+    # output stage (stage 3 on), one per patch merging (on 4C)
+    shapes = {}
+    for i, (h, w, c, _, depth, _, _) in enumerate(stages):
+        rows = B * h * w
+        shapes[(rows, c)] = 2 * depth + 1  # + the patch norm (stage 2) or the output norm
+        if i < len(stages) - 1:
+            shapes[(B * ((h + 1) // 2) * ((w + 1) // 2), 4 * c)] = 1
+    assert sum(shapes.values()) == 55
+    extra = [(2465, 3072), (777, 192), (1001, 100)]  # odd row counts; C not a multiple of 8
+    for dtype_name in DTYPES:
+        dt = getattr(torch, dtype_name)
+        elt = ELT[dtype_name]
+        for (rows, c), count in [*shapes.items(), *[(s, 0) for s in extra]]:
+            x = (torch.randn((rows, c), generator=gen) * 2.0 + 1.5).to(dev, dt)
+            scale = (torch.randn((c,), generator=gen) * 0.5 + 1.0).to(dev)
+            bias = torch.randn((c,), generator=gen).to(dev)
+            fk = lambda: fused_layer_norm(x, scale, bias)  # noqa: E731
+            fp = lambda: fused_layer_norm_plain(x, scale, bias)  # noqa: E731
+            fl = lambda: F.layer_norm(x, (c,), scale.to(dt), bias.to(dt), 1e-5)  # noqa: E731
+            o_k, o_p = fk(), fp()
+            torch.cuda.synchronize()
+            tag = f"{dtype_name} ({rows}, {c})"
+            e = compare(f"layer_norm {tag}", o_k, o_p, "ln", dtype_name)
+            if dtype_name == "bfloat16":
+                xf = x.float()
+                no_mean = (xf * torch.rsqrt(xf.var(-1, keepdim=True, unbiased=False) + 1e-5)
+                           * scale + bias).to(dt)
+                reject(f"layer_norm plain without the mean {tag}", no_mean, o_p, "ln",
+                       dtype_name)
+                o32 = fused_layer_norm(x, scale, bias, out_dtype=torch.float32)
+                compare(f"layer_norm bf16 in, float32 out {tag}", o32,
+                        fused_layer_norm_plain(x, scale, bias, out_dtype=torch.float32),
+                        "ln", "float32")
+            if not count:
+                continue
+            tk, tp, tl = median_ms(fk), median_ms(fp), median_ms(fl)
+            log(f"  layer_norm {tag} x{count}: kernel {tk:.3f} ms plain {tp:.3f} ms "
+                f"F.layer_norm {tl:.3f} ms")
+            tally(results, "layer_norm", "swin", dtype_name).add(
+                tk, tp, 2 * rows * c * elt + 8 * c, 8 * rows * c, "float32", e, count, tl)
+
+
+def kernels_window_attention(results):
+    import torch
+    import torch.nn.functional as F
+
+    from afigan_tpu_torch.models.swin import _sw_attn_mask
+    from afigan_tpu_torch.ops.kernels.window_attention import (fused_window_attention,
+                                                               fused_window_attention_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    B, WS, D = 2, 12, 32
+    # (windows per image, heads, tokens, mask or None, calls per batch)
+    cases = []
+    for _, _, _, nh, depth, hp, wp in swin_stage_shapes():
+        nw = (hp // WS) * (wp // WS)
+        cases.append((nw, nh, WS * WS, None, depth // 2))
+        cases.append((nw, nh, WS * WS, _sw_attn_mask(hp, wp, WS, WS // 2), depth // 2))
+    assert sum(c[-1] for c in cases) == 24
+    cases.append((35, 3, 49, None, 0))  # window 7 (Swin-T)
+    cases.append((35, 3, 49, _sw_attn_mask(35, 49, 7, 3), 0))
+    for dtype_name in DTYPES:
+        dt = getattr(torch, dtype_name)
+        elt = ELT[dtype_name]
+        for nw, nh, n, mask, count in cases:
+            bnw = B * nw
+            q, k, v = (torch.randn((bnw, nh, n, D), generator=gen).to(dev, dt)
+                       for _ in range(3))
+            bias = torch.randn((nh, n, n), generator=gen).to(dev)
+            m = None if mask is None else torch.as_tensor(mask, device=dev)
+            scale = D ** -0.5
+            fk = lambda: fused_window_attention(q, k, v, bias, m, scale=scale)  # noqa: E731
+            fp = lambda: fused_window_attention_plain(q, k, v, bias, m, scale=scale)  # noqa: E731
+            o_k, o_p = fk(), fp()
+            torch.cuda.synchronize()
+            tag = (f"{dtype_name} ({bnw}, {nh}, {n}, {D}) "
+                   f"{'no mask' if m is None else 'mask'}")
+            e = compare(f"window_attention {tag}", o_k, o_p, "attn", dtype_name)
+            if dtype_name == "bfloat16":
+                reject(f"window_attention plain without the bias {tag}",
+                       fused_window_attention_plain(q, k, v, torch.zeros_like(bias), m,
+                                                    scale=scale), o_p, "attn", dtype_name)
+            if not count:
+                continue
+            # the yardstick: one library call with bias (+ mask) as its attn_mask
+            am = bias[None]
+            if m is not None:
+                am = (bias[None, None] + m[None, :, None]).expand(B, nw, nh, n, n)
+                am = am.reshape(bnw, nh, n, n)
+            am = am.to(dt).contiguous()
+            fl = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,  # noqa: E731
+                                                        scale=scale)
+            tk, tp, tl = median_ms(fk), median_ms(fp), median_ms(fl)
+            log(f"  window_attention {tag} x{count}: kernel {tk:.3f} ms plain {tp:.3f} ms "
+                f"scaled_dot_product_attention {tl:.3f} ms")
+            nbytes = 4 * bnw * nh * n * D * elt + 4 * nh * n * n + (
+                0 if m is None else 4 * m.numel())
+            ops = bnw * nh * (4 * n * n * D + 6 * n * n)
+            tally(results, "window_attention", "swin", dtype_name).add(
+                tk, tp, nbytes, ops, dtype_name, e, count, tl)
+            del am
+
+
+def phase_kernels(results):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    for part in (kernels_generator, kernels_roi_pool, kernels_layer_norm,
+                 kernels_window_attention):
+        part(results)
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +573,7 @@ def random_batch(rng, b, canvas, sizes):
     return {"image": img, "image_sizes": np.asarray(sizes, np.int32)}
 
 
-def check_outputs(dets, masks, b, d, s):
+def check_outputs(dets, masks, b, d, mask_size):
     import torch
 
     shapes = {"boxes": (b, d, 4), "scores": (b, d), "classes": (b, d), "valid": (b, d)}
@@ -303,27 +581,39 @@ def check_outputs(dets, masks, b, d, s):
         t = getattr(dets, k)
         if tuple(t.shape) != shp:
             raise AssertionError(f"dets.{k} shape {tuple(t.shape)} != {shp}")
-    if tuple(masks.shape) != (b, d, s, s):
-        raise AssertionError(f"masks shape {tuple(masks.shape)}")
-    for name, t in (("boxes", dets.boxes), ("scores", dets.scores), ("masks", masks)):
+    finite = [("boxes", dets.boxes), ("scores", dets.scores)]
+    if mask_size is None:
+        if masks is not None:
+            raise AssertionError("masks from a model without a mask head")
+    else:
+        if tuple(masks.shape) != (b, d, mask_size, mask_size):
+            raise AssertionError(f"masks shape {tuple(masks.shape)}")
+        finite.append(("masks", masks))
+    for name, t in finite:
         if not bool(torch.isfinite(t.float()).all()):
             raise AssertionError(f"non-finite {name}")
 
 
-def run_batches(name, cfg, batches):
+def run_batches(name, cfg, batches, per_batch=None):
     """Build the model on the card from seed 0, run one warm-up batch, then
-    time each batch alone (host clock, synchronized). Returns the model."""
+    time each batch alone (host clock, synchronized). The kernels' launch
+    counts are set to 0 just before the model's first batch and read just
+    after its last; ``per_batch`` names the counts one batch must make.
+    Returns (model, valid detections per batch, counts)."""
     import torch
 
     from afigan_tpu_torch.engine.inference import predict
     from afigan_tpu_torch.models import build_model
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     log(f"  {name}: model built in {time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M params, "
         f"compute dtype {model.dtype}")
+    canvas = batches[0]["image"].shape[1:3]
     torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     predict(model, batches[0])  # warm-up (cuDNN autotune, kernel load)
     torch.cuda.synchronize()
     ms, valid = [], []
@@ -332,46 +622,83 @@ def run_batches(name, cfg, batches):
         dets, masks = predict(model, batch)
         torch.cuda.synchronize()
         ms.append(1000 * (time.perf_counter() - t0))
-        check_outputs(dets, masks, 2, cfg.TEST.DETECTIONS_PER_IMAGE, 28)
+        check_outputs(dets, masks, 2, cfg.TEST.DETECTIONS_PER_IMAGE,
+                      28 if cfg.MODEL.MASK_ON else None)
         valid.append(int(dets.valid.sum()))
-    med = float(np.median(ms))
-    log(f"  {name}: {med:.1f} ms per batch of 2 (median of {len(ms)}; min {min(ms):.1f}, "
-        f"max {max(ms):.1f}), {2000 / med:.3f} images/s at the median, 832x1344 canvas, "
-        f"bf16; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"valid detections per image {np.mean(valid) / 2:.1f}")
-    return model, valid
-
-
-def phase_slice(results, n_batches=20):
-    from afigan_tpu_torch.config import main_path_cfg
-    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-
-    rng = np.random.RandomState(0)
-    batches = [random_batch(rng, 2, (832, 1344), [(800, 1333), (800, 1067)])
-               for _ in range(n_batches + 1)]
-    # the main path: its config as is; random weights score no class above
-    # the 0.05 threshold, so every image has 0 detections
-    reset_launches()
-    model, _ = run_batches("slice", main_path_cfg(), batches)
     counts = dict(LAUNCHES)
-    log("kernels " + json.dumps(counts))
+    log(f"  {name}: launches in {len(batches)} batches " + json.dumps(counts))
+    for k, n in (per_batch or {}).items():
+        if counts[k] != n * len(batches):
+            raise AssertionError(f"{name}: {counts[k]} launches of {k} in {len(batches)} "
+                                 f"batches, expected {n} per batch")
+    if ms:
+        med = float(np.median(ms))
+        log(f"  {name}: {med:.1f} ms per batch of 2 (median of {len(ms)}; min {min(ms):.1f}, "
+            f"max {max(ms):.1f}), {2000 / med:.3f} images/s at the median, "
+            f"{canvas[0]}x{canvas[1]} canvas, bf16; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"valid detections per image {np.mean(valid) / 2:.1f}")
+    return model, valid, counts
+
+
+def run_slice(results, path, make_cfg, canvas, per_batch, n_batches):
+    """One model at full width under the two traffics. The first, its config
+    as is, is the path's main run: its launch counts go into the result."""
+    rng = np.random.RandomState(0)
+    batches = [random_batch(rng, 2, canvas, SIZES) for _ in range(n_batches + 1)]
+    # random weights score no class above the 0.05 threshold, so every image
+    # has 0 detections
+    model, _, counts = run_batches(path, make_cfg(), batches, per_batch)
     for k, v in counts.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the main path")
-        results[k]["launches"] = v
+        results[k].setdefault("launches", {})[path] = v // len(batches)
+        if per_batch.get(k, 0) and v <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the {path} path")
     profile_batch(model, batches[-1])
     del model
     # the load of a trained model: normalised pixels and no score threshold
-    # fill all 100 detection slots, so detection NMS stops early and the mask
-    # pooler and head run on real boxes
-    cfg = main_path_cfg()
+    # fill all 100 detection slots, so detection NMS stops early and the
+    # heads after it run on real boxes
+    cfg = make_cfg()
     cfg.MODEL.PIXEL_STD = GOLDEN_PIXEL_STD
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
-    model, valid = run_batches("slice with 100 detections per image", cfg, batches)
+    model, valid, _ = run_batches(f"{path} with 100 detections per image", cfg, batches,
+                                  per_batch)
     if min(valid) == 0:
         raise AssertionError("a batch without detections")
     profile_batch(model, batches[-1])
     del model
+
+
+# kernel launches that one batch of each path must make: the generator is 16
+# chain + 3 upsample launches a call (3 calls on the FPN, 28 on the BiFPN),
+# the pooler one launch a call
+R50_PER_BATCH = {"afi_chain": 3 * 16, "afi_upsample": 3 * 3, "roi_pool": 2,
+                 "afi_rdb": 0, "layer_norm": 0, "window_attention": 0}
+SWIN_PER_BATCH = {"afi_chain": 28 * 16, "afi_upsample": 28 * 3, "roi_pool": 3,
+                  "afi_rdb": 0, "layer_norm": 55, "window_attention": 24}
+# with one dense block: the head conv + 5 dense convs a call, all launches
+# of the conv kernel, counted as afi_rdb
+RDB1_PER_BATCH = {"afi_chain": 0, "afi_upsample": 3 * 3, "roi_pool": 2,
+                  "afi_rdb": 3 * 6, "layer_norm": 0, "window_attention": 0}
+
+
+def phase_slice(results, n_batches=10):
+    from afigan_tpu_torch.config import main_path_cfg
+
+    run_slice(results, "r50", main_path_cfg, R50_CANVAS, R50_PER_BATCH, n_batches)
+    # the configuration whose generator runs fused_rdb: one dense block
+    cfg = main_path_cfg()
+    cfg.MODEL.AFI.N_RDB = 1
+    rng = np.random.RandomState(1)
+    batches = [random_batch(rng, 2, R50_CANVAS, SIZES) for _ in range(3)]
+    _, _, counts = run_batches("r50_n_rdb1", cfg, batches, RDB1_PER_BATCH)
+    results["afi_rdb"].setdefault("launches", {})["r50_n_rdb1"] = counts["afi_rdb"] // 3
+
+
+def phase_slice_swin(results, n_batches=10):
+    from afigan_tpu_torch.config import swin_path_cfg
+
+    run_slice(results, "swin", swin_path_cfg, SWIN_CANVAS, SWIN_PER_BATCH, n_batches)
 
 
 def profile_batch(model, batch):
@@ -398,8 +725,12 @@ def profile_batch(model, batch):
     busy = sum(e.self_device_time_total for e in kernels) / 1000.0
     log(f"  profile: wall {1000 * wall:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / (1000 * wall):.1f} % of wall)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} {e.key[:90]}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    ours = ("afi::", "roi_pool_kernel", "layer_norm_kernel", "window_attention_kernel")
+    for i, e in enumerate(top):  # the 14 largest, and every kernel of the port
+        if i < 14 or any(name in e.key for name in ours):
+            log(f"  kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} "
+                f"{e.key[:90]}")
 
     marks = []
 
@@ -410,9 +741,12 @@ def profile_batch(model, batch):
         return hook
 
     rh = model.roi_heads
+    cascade = isinstance(rh.box_predictor, torch.nn.ModuleList)
     mods = {"bottom_up": model.backbone.bottom_up, "afi": model.backbone.srf_module,
             "rpn_head": model.proposal_generator.rpn_head, "roi_heads": rh,
-            "box_predictor": rh.box_predictor, "mask_head": rh.mask_head}
+            "box_predictor": rh.box_predictor[-1] if cascade else rh.box_predictor}
+    if rh.mask_on:
+        mods["mask_head"] = rh.mask_head
     handles = [h for n, m in mods.items() for h in (
         m.register_forward_pre_hook(mark(n + "<")), m.register_forward_hook(mark(n + ">")))]
     mark("start")()
@@ -423,19 +757,26 @@ def profile_batch(model, batch):
     t = {}
     for name, ts in marks:
         t.setdefault(name, ts)
-    afi = sum(ts - s for (n, ts), (_, s) in zip(marks[1:], marks) if n == "afi>")
+    spans = [ts - s for (n, ts), (_, s) in zip(marks[1:], marks) if n == "afi>"]
+    afi = sum(spans)
     stages = [
         ("input + normalise", t["bottom_up<"] - t["start"]),
-        ("resnet", t["bottom_up>"] - t["bottom_up<"]),
-        ("afi generator x3", afi),
-        ("fpn convs", t["rpn_head<"] - t["bottom_up>"] - afi),
+        (f"bottom-up ({type(model.backbone.bottom_up).__name__})",
+         t["bottom_up>"] - t["bottom_up<"]),
+        (f"afi generator x{len(spans)}", afi),
+        ("pyramid convs", t["rpn_head<"] - t["bottom_up>"] - afi),
         ("rpn head", t["rpn_head>"] - t["rpn_head<"]),
         ("proposals (top-k, decode, nms)", t["roi_heads<"] - t["rpn_head>"]),
-        ("box pool + box head", t["box_predictor>"] - t["roi_heads<"]),
-        ("detection (decode, nms) + mask pool", t["mask_head<"] - t["box_predictor>"]),
-        ("mask head", t["mask_head>"] - t["mask_head<"]),
-        ("output", t["end"] - t["mask_head>"]),
+        (f"box pool + box head x{len(rh.box_predictor) if cascade else 1}",
+         t["box_predictor>"] - t["roi_heads<"]),
     ]
+    if rh.mask_on:
+        stages += [
+            ("detection (decode, nms) + mask pool", t["mask_head<"] - t["box_predictor>"]),
+            ("mask head", t["mask_head>"] - t["mask_head<"]),
+            ("output", t["end"] - t["mask_head>"])]
+    else:
+        stages.append(("detection (decode, nms) + output", t["end"] - t["box_predictor>"]))
     total = t["end"] - t["start"]
     log(f"  layers (host clock, synchronized): {1000 * total:.1f} ms per batch")
     for name, s in stages:
@@ -446,16 +787,29 @@ def profile_batch(model, batch):
 # phase 4: card vs CPU
 # ---------------------------------------------------------------------------
 
-def phase_card_vs_cpu():
+def narrow_swin_cfg():
+    """The flagship YAML at narrow widths for the card-vs-CPU check: head
+    dimension 32 (the attention kernel's) at embed 32 with 1-2-4-8 heads,
+    window 4, two BiFPN layers of 32 channels, growth 8."""
+    from afigan_tpu_torch.config import swin_path_cfg
+
+    cfg = swin_path_cfg()
+    cfg.merge_from_list([
+        "MODEL.SWINT.EMBED_DIM", "32", "MODEL.SWINT.DEPTHS", "(2, 2, 2, 2)",
+        "MODEL.SWINT.NUM_HEADS", "(1, 2, 4, 8)", "MODEL.SWINT.WINDOW_SIZE", "4",
+        "MODEL.BIFPN.OUT_CHANNELS", "32", "MODEL.BIFPN.FPN_REPEAT", "2",
+        "MODEL.AFI.GROWTH_RATE", "8", "MODEL.ROI_BOX_HEAD.CONV_DIM", "32",
+        "MODEL.ROI_BOX_HEAD.FC_DIM", "64"])
+    return cfg
+
+
+def card_vs_cpu(name, cfg, canvas, size):
     import torch
 
-    from afigan_tpu_torch.config import main_path_cfg
     from afigan_tpu_torch.engine.inference import predict
     from afigan_tpu_torch.models import build_model
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = main_path_cfg()
     cfg.TPU.COMPUTE_DTYPE = "float32"
     # tests/test_golden_regression.py's test-time settings: normalised inputs
     # so random weights give non-degenerate detections, every class scored,
@@ -472,8 +826,10 @@ def phase_card_vs_cpu():
     gpu = build_model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict(), strict=True)
     rng = np.random.RandomState(42)
-    batch = random_batch(rng, 1, (320, 320), [(288, 320)])
+    batch = random_batch(rng, 1, canvas, [size])
+    reset_launches()
     d_g, m_g = predict(gpu, batch)
+    launched = {k: v for k, v in LAUNCHES.items() if v}
     d_c, m_c = predict(cpu, batch)
     vg, vc = d_g.valid[0].cpu().numpy(), d_c.valid[0].numpy()
     np.testing.assert_array_equal(vg, vc, "valid")
@@ -484,14 +840,32 @@ def phase_card_vs_cpu():
                                   d_c.classes[0].numpy()[vc], "classes")
     sg, sc = d_g.scores[0].cpu().numpy()[vg], d_c.scores[0].numpy()[vc]
     bg, bc = d_g.boxes[0].cpu().numpy()[vg], d_c.boxes[0].numpy()[vc]
-    mg = m_g[0].sum(dim=(1, 2)).cpu().numpy()[vg]
-    mc = m_c[0].sum(dim=(1, 2)).numpy()[vc]
     np.testing.assert_allclose(sg, sc, rtol=0, atol=1e-3, err_msg="scores")
     np.testing.assert_allclose(bg, bc, rtol=0, atol=0.05, err_msg="boxes(px)")
-    np.testing.assert_allclose(mg, mc, rtol=5e-3, atol=5e-3, err_msg="mask_sum")
-    log(f"  card_vs_cpu: {n} valid detections equal in class; max |d score| "
-        f"{np.abs(sg - sc).max():.2e}, max |d box| {np.abs(bg - bc).max():.2e} px, "
-        f"max |d mask_sum| {np.abs(mg - mc).max():.2e}")
+    msg = (f"  card_vs_cpu {name}: {n} valid detections equal in class; max |d score| "
+           f"{np.abs(sg - sc).max():.2e}, max |d box| {np.abs(bg - bc).max():.2e} px")
+    if m_c is not None:
+        mg = m_g[0].sum(dim=(1, 2)).cpu().numpy()[vg]
+        mc = m_c[0].sum(dim=(1, 2)).numpy()[vc]
+        np.testing.assert_allclose(mg, mc, rtol=5e-3, atol=5e-3, err_msg="mask_sum")
+        msg += f", max |d mask_sum| {np.abs(mg - mc).max():.2e}"
+    log(msg + f"; launches on the card {json.dumps(launched)}")
+    return launched
+
+
+def phase_card_vs_cpu(results):
+    import torch
+
+    from afigan_tpu_torch.config import main_path_cfg
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card_vs_cpu("r50", main_path_cfg(), (320, 320), (288, 320))
+    launched = card_vs_cpu("narrow swin", narrow_swin_cfg(), (128, 256), (120, 250))
+    for k in ("layer_norm", "window_attention", "afi_chain", "afi_upsample", "roi_pool"):
+        if not launched.get(k):
+            raise AssertionError(f"the narrow Swin model did not launch {k} on the card")
+    torch.backends.cudnn.allow_tf32 = True
 
 
 def main():
@@ -518,22 +892,25 @@ def main():
 
     results = {k: {} for k in KERNELS}
     for name, phase in (("kernels", phase_kernels), ("slice", phase_slice),
-                        ("card_vs_cpu", lambda r: phase_card_vs_cpu())):
+                        ("slice_swin", phase_slice_swin),
+                        ("card_vs_cpu", phase_card_vs_cpu)):
         t0 = time.perf_counter()
         log(f"== phase {name}")
         phase(results)
         log(f"== phase {name} ok in {time.perf_counter() - t0:.1f} s")
 
     summary = []
-    for name, (src, replaces) in KERNELS.items():
+    for name, (src, replaces, path) in KERNELS.items():
         r = results[name]
-        summary.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": r["launches"], "max_abs_err": max(r["err_bfloat16"]),
-            "ms": r["ms_bfloat16"], "plain_ms": r["plain_ms_bfloat16"],
-            "ms_fp32": r["ms_float32"], "plain_ms_fp32": r["plain_ms_float32"],
-            "max_abs_err_fp32": max(r["err_float32"]),
-        })
+        if r["launches"].get(path, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the {path} path")
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "path": path, "launches": r["launches"][path],
+                 **r["tallies"][(path, "bfloat16")].summary(),
+                 "launches_by_path": {p: n for p, n in r["launches"].items() if n},
+                 "by_path_and_dtype": {f"{p} {d}": t.summary()
+                                       for (p, d), t in r["tallies"].items()}}
+        summary.append(entry)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(smi)
     print(json.dumps({"kernels": summary}), flush=True)

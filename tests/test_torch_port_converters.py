@@ -3,9 +3,8 @@
 * ``variables_to_state_dict`` (flax → d2 names) loads strictly into the
   port's Mask R-CNN R-50-FPN+AFI, and the port's ``state_dict()`` maps back
   through the JAX package's ``state_dict_to_variables`` to identical arrays.
-* ``main_path_cfg()`` (plain Python, used where yaml / the JAX package are
-  not imported) equals ``get_cfg()`` merged with the inference YAML on
-  every key it holds.
+* ``main_path_cfg()`` equals ``get_cfg()`` merged with the R-50 inference
+  YAML on every key.
 * Importing the port leaves jax, flax and cv2 unimported.
 """
 
@@ -43,7 +42,7 @@ def test_converters_round_trip_full_tree():
                                         jnp.asarray([[64, 64]], jnp.int32)))()
     variables = jax.tree.map(np.asarray, variables)
     sd = variables_to_state_dict(variables)
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     model.load_state_dict({k: torch.tensor(v) for k, v in sd.items()}, strict=True)
     # every generator weight of the reference Sequential layout is present
     assert "backbone.srf_module.Generators.0.1.RDBs.2.conv4.0.weight" in sd
@@ -59,6 +58,19 @@ def test_converters_round_trip_full_tree():
         for p in path:
             node = node[p]
         np.testing.assert_array_equal(node, leaf, err_msg="/".join(path))
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a GPU")
+def test_entry_points_default_to_the_gpu_and_refuse_without_one():
+    """``build_model(cfg)`` and ``run_net`` mean the GPU: without one they
+    raise, and only an explicit ``device="cpu"`` builds on the CPU."""
+    from afigan_tpu_torch.run_net import parse_args
+
+    assert parse_args(["--config-file", "x.yaml"]).device == "cuda"
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_model(small_cfg())
+    model = build_model(small_cfg(), device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
 
 
 def _cfg_pairs(plain, full, prefix=""):

@@ -29,7 +29,9 @@ from afigan_tpu.engine.inference import paste_masks as jax_paste
 from afigan_tpu.engine.inference import run_inference as jax_run_inference
 from afigan_tpu.evaluation.coco_eval import CocoEvaluator
 from afigan_tpu.evaluation.rle import rle_area
+from afigan_tpu_torch.data.coco import CocoDataset as PortDataset
 from afigan_tpu_torch.engine.inference import paste_masks, run_inference
+from afigan_tpu_torch.evaluation import CocoEvaluator as PortEvaluator
 from afigan_tpu_torch.run_net import load_weights
 from tests.fixtures import make_tiny_coco
 from tests.torch_port_common import GOLDEN_OVERRIDES, REPO, golden_cfg, jax_and_port
@@ -40,17 +42,18 @@ def _ap(res):
                      res["segm"]["AP"], res["segm"]["AP50"]], np.float64)
 
 
-def _with_predictions(fn):
-    """Run ``fn`` and return (its result, the predictions it evaluated)."""
+def _with_predictions(fn, evaluator=CocoEvaluator):
+    """Run ``fn`` and return (its result, the predictions that ``evaluator``,
+    the JAX package's or the port's own, evaluated)."""
     seen = []
-    orig = CocoEvaluator.evaluate
+    orig = evaluator.evaluate
 
     def evaluate(self):
         seen.extend(self.predictions)
         return orig(self)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(CocoEvaluator, "evaluate", evaluate)
+        mp.setattr(evaluator, "evaluate", evaluate)
         return fn(), seen
 
 
@@ -69,7 +72,7 @@ def test_run_inference_ap_matches_jax(setup):
     _, json_path, img_dir, cfg, tm, _, want, want_preds = setup
     # batches of 3 over 4 images: the last batch is padded, as the JAX loader pads
     got, preds = _with_predictions(lambda: run_inference(
-        cfg, tm, CocoDataset(json_path, img_dir), batch_size=3))
+        cfg, tm, PortDataset(json_path, img_dir), batch_size=3), PortEvaluator)
     np.testing.assert_allclose(_ap(got), want, rtol=0, atol=1e-3,
                                err_msg="AP [bbox AP, bbox AP50, segm AP, segm AP50]")
     assert len(preds) == len(want_preds) == 4 * 16

@@ -1,6 +1,6 @@
 """Port AF interpolator vs the JAX package, float32 on the CPU.
 
-The port's chain and upsample (their plain versions: on a CPU tensor the
+The port's chain, single dense block and upsample (their plain versions: on a CPU tensor the
 wrappers run F.conv2d over real concatenations) are held against the JAX
 Pallas kernels in interpret mode, and the port ``AFIGenerator`` against
 the JAX ``AFIGenerator``, on the same numpy inputs and the same weights
@@ -16,6 +16,7 @@ import torch
 
 from afigan_tpu.models.afi.generator import AFIGenerator as JaxGenerator
 from afigan_tpu.ops.pallas import fused_generator_chain as jax_chain
+from afigan_tpu.ops.pallas import fused_rdb as jax_rdb
 from afigan_tpu.ops.pallas import fused_upsample as jax_upsample
 from afigan_tpu_torch.models.afi import AFIGenerator
 from afigan_tpu_torch.ops.kernels import afi_generator as ag
@@ -25,11 +26,11 @@ C, G = 32, 8
 SHAPES = [(16, 16), (24, 40), (13, 18)]
 
 
-def _jax_and_port(h, w, seed=0):
+def _jax_and_port(h, w, seed=0, n_rdb=3):
     x = np.random.RandomState(seed).randn(2, h, w, C).astype(np.float32)
-    jm = JaxGenerator(in_channels=C, n_rdb=3, growth_rate=G)
+    jm = JaxGenerator(in_channels=C, n_rdb=n_rdb, growth_rate=G)
     params = jm.init(jax.random.PRNGKey(seed), jnp.asarray(x))["params"]
-    tm = AFIGenerator(C, 3, G)
+    tm = AFIGenerator(C, n_rdb, G)
     sd = generator_state_dict(jax.tree.map(np.asarray, params))
     tm.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     return x, jm, params, tm
@@ -53,6 +54,33 @@ def test_chain_matches_pallas_interpret(hw):
         got = ag.fused_generator_chain(torch.from_numpy(x), head[0].weight,
                                        head[0].bias,
                                        [b.weights() for b in rir_t.RDBs], 0.2)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("hw", SHAPES)
+def test_rdb_matches_pallas_interpret(hw):
+    """One dense block: the port's ``fused_rdb`` (and its plain version)
+    against the JAX Pallas ``fused_rdb`` in interpret mode, within 1e-5."""
+    x, _, params, tm = _jax_and_port(*hw, seed=3, n_rdb=1)
+    rdb = params["generators_0/rir"]["rdb0"]
+    want = jax_rdb(jnp.asarray(x), [rdb[f"conv{j}"]["conv"]["kernel"] for j in range(1, 6)],
+                   0.2, tile=8, interpret=True)
+    ws = tm.Generators[0][1].RDBs[0].weights()
+    with torch.no_grad():
+        got = ag.fused_rdb(torch.from_numpy(x), ws, 0.2)
+        plain = ag.fused_rdb_plain(torch.from_numpy(x), ws, 0.2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("n_rdb", [1, 2])
+def test_generator_with_other_block_counts_matches_jax(n_rdb):
+    """Without three blocks the port takes the head conv, one ``fused_rdb``
+    per block and the RiR residual, as the JAX package's fused path does."""
+    x, jm, params, tm = _jax_and_port(13, 18, seed=4, n_rdb=n_rdb)
+    want = jm.apply({"params": params}, jnp.asarray(x))
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x))
     _close(got.numpy(), want)
 
 

@@ -60,7 +60,43 @@ def small_cfg():
     return cfg
 
 
-def jax_and_port(cfg):
+SWIN_OVERRIDES = [
+    "TPU.COMPUTE_DTYPE", "float32",
+    # the JAX model through its Pallas kernels (interpret mode on the CPU),
+    # which the port follows
+    "TPU.SWIN_ATTN_IMPL", "pallas",
+    "TPU.SWIN_LN_IMPL", "pallas",
+    "MODEL.SWINT.EMBED_DIM", "24",
+    "MODEL.SWINT.DEPTHS", "(2, 2, 2, 2)",
+    "MODEL.SWINT.NUM_HEADS", "(1, 2, 4, 8)",
+    "MODEL.SWINT.WINDOW_SIZE", "4",
+    "MODEL.BIFPN.OUT_CHANNELS", "32",
+    "MODEL.BIFPN.FPN_REPEAT", "2",
+    "MODEL.AFI.GROWTH_RATE", "8",
+    "MODEL.ROI_BOX_HEAD.CONV_DIM", "32",
+    "MODEL.ROI_BOX_HEAD.FC_DIM", "64",
+    "MODEL.ROI_HEADS.NUM_CLASSES", "3",
+    "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
+    "MODEL.RPN.PRE_NMS_TOPK_TEST", "128",
+    "MODEL.RPN.POST_NMS_TOPK_TEST", "64",
+    "TEST.DETECTIONS_PER_IMAGE", "16",
+    "INPUT.MIN_SIZE_TEST", "96",
+    "INPUT.MAX_SIZE_TEST", "256",
+    "TPU.IMAGE_BUCKETS", "((128, 256),)",
+]
+
+
+def swin_cfg():
+    """The flagship YAML (Cascade R-CNN, Swin + BiFPN(AFI)) at narrow widths:
+    embed 24, depths 2-2-2-2, window 4, BiFPN 2 x 32 channels, float32."""
+    from afigan_tpu_torch.config import swin_path_cfg
+
+    cfg = swin_path_cfg()
+    cfg.merge_from_list(list(SWIN_OVERRIDES))
+    return cfg
+
+
+def jax_and_port(cfg, canvas=(128, 128)):
     """(JAX model, its PRNGKey(0) variables, the port model with the same
     weights through ``variables_to_state_dict``)."""
     from afigan_tpu.models import build_model as jax_build
@@ -69,9 +105,9 @@ def jax_and_port(cfg):
 
     jm = jax_build(cfg, train=False)
     variables = jax.jit(lambda: jm.init(
-        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 128, 128, 3), jnp.float32),
-        jnp.asarray([[96, 128]], jnp.int32)))()
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, *canvas, 3), jnp.float32),
+        jnp.asarray([list(canvas)], jnp.int32)))()
     sd = variables_to_state_dict(jax.tree.map(np.asarray, variables))
-    tm = build_model(cfg)
+    tm = build_model(cfg, device="cpu")
     tm.load_state_dict({k: torch.tensor(v) for k, v in sd.items()}, strict=True)
     return jm, variables, tm, sd
