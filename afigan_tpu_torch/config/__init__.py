@@ -17,9 +17,10 @@ from .node import CfgNode
 
 CONFIGS = Path(__file__).resolve().parents[2] / "configs"
 
-# the two ported inference paths
+# the ported inference paths
 R50_FPN_YAML = "inference/AFI-GAN_maskrcnn_R_50_FPN.yaml"
 SWIN_BIFPN_YAML = "inference/AFI-GAN_cascade_rcnn_swint_BiFPN_ST.yaml"
+CENTERMASK_YAML = "inference/AFI-GAN_centermask_R_50_BiFPN.yaml"
 
 
 def get_cfg() -> CfgNode:
@@ -44,5 +45,11 @@ def swin_path_cfg() -> CfgNode:
     return cfg_from_yaml(SWIN_BIFPN_YAML)
 
 
+def centermask_path_cfg() -> CfgNode:
+    """Inference config of CenterMask (FCOS + SAG mask head) R-50-BiFPN(AFI),
+    the 160-channel pyramid."""
+    return cfg_from_yaml(CENTERMASK_YAML)
+
+
 __all__ = ["CfgNode", "get_cfg", "get_default_cfg", "cfg_from_yaml",
-           "main_path_cfg", "swin_path_cfg"]
+           "main_path_cfg", "swin_path_cfg", "centermask_path_cfg"]

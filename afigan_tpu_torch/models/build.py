@@ -2,9 +2,11 @@
 
 Ported registry entries: ``build_resnet_fpn_sr_backbone`` /
 ``build_resnet_fpn_backbone`` (ResNet + FPN with the AF interpolator /
-nearest top-down) and ``build_swint_bifpn_sr_backbone`` /
-``build_swint_bifpn_backbone`` (Swin + BiFPN), under ``GeneralizedRCNN`` with
-``StandardROIHeads`` or ``CascadeROIHeads``. Every other name raises
+nearest top-down), ``build_swint_bifpn_sr_backbone`` /
+``build_swint_bifpn_backbone`` (Swin + BiFPN) and
+``build_resnet_bifpn_sr_backbone`` / ``build_resnet_bifpn_backbone`` (ResNet +
+BiFPN), under ``GeneralizedRCNN`` with ``StandardROIHeads`` or
+``CascadeROIHeads``, ``FCOS`` or ``CenterMask``. Every other name raises
 ``NotImplementedError`` naming the ROADMAP item.
 """
 
@@ -17,6 +19,8 @@ import torch.nn as nn
 
 from .bifpn import BiFPN
 from .cascade_roi_heads import CascadeROIHeads
+from .centermask import CenterMask
+from .fcos import FCOS
 from .fpn import FPN
 from .meta_arch import GeneralizedRCNN
 from .resnet import build_resnet
@@ -36,7 +40,9 @@ def compute_dtype(cfg) -> torch.dtype:
 _BACKBONES = {"build_resnet_fpn_sr_backbone": ("resnet", "fpn", "afi"),
               "build_resnet_fpn_backbone": ("resnet", "fpn", "nearest"),
               "build_swint_bifpn_sr_backbone": ("swin", "bifpn", "afi"),
-              "build_swint_bifpn_backbone": ("swin", "bifpn", "nearest")}
+              "build_swint_bifpn_backbone": ("swin", "bifpn", "nearest"),
+              "build_resnet_bifpn_sr_backbone": ("resnet", "bifpn", "afi"),
+              "build_resnet_bifpn_backbone": ("resnet", "bifpn", "nearest")}
 
 
 def pyramid_channels(cfg) -> int:
@@ -68,7 +74,8 @@ def build_backbone(cfg, device=None) -> nn.Module:
         in_strides=tuple(_STRIDES[f] for f in cfg.MODEL.FPN.IN_FEATURES),
         out_channels=cfg.MODEL.FPN.OUT_CHANNELS, norm=cfg.MODEL.FPN.NORM,
         fuse_type=cfg.MODEL.FPN.FUSE_TYPE, interp=interp,
-        top_block=cfg.MODEL.FPN.TOP_BLOCK, device=device, **afi)
+        top_block=cfg.MODEL.FPN.TOP_BLOCK,
+        top_block_in_feature=cfg.MODEL.FPN.TOP_BLOCK_IN_FEATURE, device=device, **afi)
 
 
 def build_roi_heads(cfg, device=None) -> StandardROIHeads:
@@ -90,7 +97,8 @@ def build_roi_heads(cfg, device=None) -> StandardROIHeads:
         score_thresh=rh.SCORE_THRESH_TEST, nms_thresh=rh.NMS_THRESH_TEST,
         detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
         sampling_ratio=max(bh.POOLER_SAMPLING_RATIO, 2),
-        aligned=bh.POOLER_TYPE != "ROIAlign", device=device)
+        aligned=bh.POOLER_TYPE != "ROIAlign", pooler_impl=cfg.TPU.POOLER_IMPL,
+        device=device)
     if rh.NAME == "CascadeROIHeads":
         return CascadeROIHeads(
             cascade_bbox_reg_weights=tuple(
@@ -99,24 +107,33 @@ def build_roi_heads(cfg, device=None) -> StandardROIHeads:
     return StandardROIHeads(**common)
 
 
-def build_model(cfg, device="cuda",
-                generator: Optional[torch.Generator] = None) -> GeneralizedRCNN:
-    """META_ARCHITECTURE → an eval-mode ``GeneralizedRCNN`` on ``device``:
-    the GPU unless the caller asks for ``"cpu"``. Without a GPU the default
-    raises; nothing carries on silently on the CPU.
-    With ``generator``, weights are drawn from it (the JAX package's init
-    distributions); otherwise they are torch's defaults, to be replaced by
-    ``load_state_dict``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            'build_model: no CUDA device found; pass device="cpu" to run the plain '
-            "PyTorch versions on the CPU")
-    arch = cfg.MODEL.META_ARCHITECTURE
-    if arch != "GeneralizedRCNN":
-        raise NotImplementedError(f"META_ARCHITECTURE {arch!r} {_TODO}")
+def _fcos_kwargs(cfg, device) -> dict:
+    f = cfg.MODEL.FCOS
+    return dict(
+        in_channels=pyramid_channels(cfg), num_classes=f.NUM_CLASSES,
+        in_features=tuple(f.IN_FEATURES), fpn_strides=tuple(f.FPN_STRIDES),
+        num_convs=f.NUM_CONVS, norm=f.NORM, prior_prob=f.PRIOR_PROB,
+        centerness_on_reg=f.CENTERNESS_ON_REG, use_scale=f.USE_SCALE,
+        thresh_with_ctr=f.THRESH_WITH_CTR, score_thresh=f.INFERENCE_TH_TEST,
+        nms_thresh=f.NMS_TH, pre_nms_topk=f.PRE_NMS_TOPK_TEST,
+        post_nms_topk=f.POST_NMS_TOPK_TEST, pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+        pixel_std=tuple(cfg.MODEL.PIXEL_STD), dtype=compute_dtype(cfg), device=device)
+
+
+def build_fcos(cfg, device=None) -> FCOS:
+    return FCOS(build_backbone(cfg, device), **_fcos_kwargs(cfg, device))
+
+
+def build_centermask(cfg, device=None) -> CenterMask:
+    return CenterMask(
+        build_backbone(cfg, device),
+        mask_pooler_resolution=cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION,
+        pooler_impl=cfg.TPU.POOLER_IMPL, **_fcos_kwargs(cfg, device))
+
+
+def _build_rcnn(cfg, device) -> GeneralizedRCNN:
     rpn = cfg.MODEL.RPN
-    model = GeneralizedRCNN(
+    return GeneralizedRCNN(
         build_backbone(cfg, device), build_roi_heads(cfg, device),
         rpn_in_features=tuple(rpn.IN_FEATURES),
         rpn_strides=tuple(_STRIDES[f] for f in rpn.IN_FEATURES),
@@ -131,6 +148,28 @@ def build_model(cfg, device="cuda",
         rpn_min_size=cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE,
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN), pixel_std=tuple(cfg.MODEL.PIXEL_STD),
         dtype=compute_dtype(cfg), device=device)
+
+
+def build_model(cfg, device="cuda",
+                generator: Optional[torch.Generator] = None) -> nn.Module:
+    """META_ARCHITECTURE (``GeneralizedRCNN``, ``FCOS``, ``CenterMask``) → an
+    eval-mode model on ``device``: the GPU unless the caller asks for ``"cpu"``.
+    Without a GPU the default raises; nothing carries on silently on the CPU.
+    With ``generator``, weights are drawn from it (the JAX package's init
+    distributions); otherwise they are torch's defaults, to be replaced by
+    ``load_state_dict``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            'build_model: no CUDA device found; pass device="cpu" to run the plain '
+            "PyTorch versions on the CPU")
+    arch = cfg.MODEL.META_ARCHITECTURE
+    if arch in ("FCOS", "CenterMask"):
+        model = (build_fcos if arch == "FCOS" else build_centermask)(cfg, device)
+    elif arch == "GeneralizedRCNN":
+        model = _build_rcnn(cfg, device)
+    else:
+        raise NotImplementedError(f"META_ARCHITECTURE {arch!r} {_TODO}")
     if generator is not None:
         model.init_weights(generator)
     return model.eval()

@@ -1,8 +1,10 @@
 """Feature Pyramid Network with a pluggable top-down interpolator —
 counterpart of ``afigan_tpu/models/fpn.py`` (``interp`` "afi", "nearest"
-or "bilinear"; ``LastLevelMaxPool`` p6). As in d2, the FPN owns its bottom-up network and
-is the model's ``backbone``: keys ``bottom_up.*``, ``fpn_lateral{s}``,
-``fpn_output{s}``, ``srf_module.*``.
+or "bilinear"; top block ``maxpool``, d2's ``LastLevelMaxPool`` p6, or
+``p6p7``, the two stride-2 convs of ``LastLevelP6P7`` on ``top_block_in_feature``
+for the FCOS heads). As in d2, the FPN owns its bottom-up network and is the
+model's ``backbone``: keys ``bottom_up.*``, ``fpn_lateral{s}``,
+``fpn_output{s}``, ``top_block.{p6,p7}``, ``srf_module.*``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Dict, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from .afi import AFIGenerator
@@ -28,24 +31,34 @@ class FPN(nn.Module):
                  in_strides: Sequence[int] = (4, 8, 16, 32),
                  out_channels: int = 256, norm: str = "",
                  fuse_type: str = "sum", interp: str = "afi",
-                 top_block: str = "maxpool", afi_n_rdb: int = 3,
+                 top_block: str = "maxpool", top_block_in_feature: str = "p5",
+                 afi_n_rdb: int = 3,
                  afi_growth_rate: int = 32, afi_residual_scale: float = 0.2,
                  device=None):
         super().__init__()
         self.bottom_up = bottom_up
-        if norm or top_block != "maxpool" or interp not in _INTERP:
+        if norm or top_block not in ("maxpool", "p6p7") or interp not in _INTERP:
             raise NotImplementedError(
-                "FPN: only norm '', top block maxpool and interp "
+                "FPN: only norm '', top blocks maxpool and p6p7 and interp "
                 f"{sorted(_INTERP)} are ported (ROADMAP Queue 1 item 12)")
         self.in_features = tuple(in_features)
         self.stages = [int(math.log2(s)) for s in in_strides]
         self.fuse_type = fuse_type
         self.interp = interp
+        self.top_block_kind = top_block
+        self.top_block_in_feature = top_block_in_feature
         for f, s in zip(self.in_features, self.stages):
             self.add_module(f"fpn_lateral{s}", Conv2d(
                 in_channels[f], out_channels, 1, device=device))
             self.add_module(f"fpn_output{s}", Conv2d(
                 out_channels, out_channels, 3, padding=1, device=device))
+        if top_block == "p6p7":
+            src = in_channels.get(top_block_in_feature, out_channels)
+            self.top_block = nn.Module()
+            self.top_block.p6 = Conv2d(src, out_channels, 3, stride=2, padding=1,
+                                       device=device)
+            self.top_block.p7 = Conv2d(out_channels, out_channels, 3, stride=2,
+                                       padding=1, device=device)
         if interp == "afi":
             self.srf_module = AFIGenerator(out_channels, afi_n_rdb,
                                            afi_growth_rate, afi_residual_scale,
@@ -53,11 +66,13 @@ class FPN(nn.Module):
 
     def init_weights(self, gen: torch.Generator) -> None:
         self.bottom_up.init_weights(gen)
-        for s in self.stages:
-            for name in (f"fpn_lateral{s}", f"fpn_output{s}"):
-                m = getattr(self, name)
-                init_weight(m.weight, "xavier", gen)
-                nn.init.zeros_(m.bias)
+        convs = [getattr(self, f"fpn_{kind}{s}") for s in self.stages
+                 for kind in ("lateral", "output")]
+        if self.top_block_kind == "p6p7":
+            convs += [self.top_block.p6, self.top_block.p7]
+        for m in convs:
+            init_weight(m.weight, "xavier", gen)
+            nn.init.zeros_(m.bias)
         if self.interp == "afi":
             self.srf_module.init_weights(gen)
 
@@ -68,7 +83,8 @@ class FPN(nn.Module):
             return self.srf_module(x)
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        """(B, H, W, 3) normalised images → {"p2": ..., "p6": ...} NHWC."""
+        """(B, H, W, 3) normalised images → NHWC {"p2": ..., "p6": ...}, or
+        p3..p7 on res3-res5 with the ``p6p7`` top block."""
         bottom_up = self.bottom_up(x)
         feats = [bottom_up[f] for f in self.in_features][::-1]
         rev = self.stages[::-1]
@@ -83,5 +99,11 @@ class FPN(nn.Module):
             results.insert(0, getattr(self, f"fpn_output{stage}")(prev))
         out = {f"p{s}": r for s, r in zip(self.stages, results)}
         last = self.stages[-1]
-        out[f"p{last + 1}"] = max_pool_stride2(out[f"p{last}"])
+        if self.top_block_kind == "maxpool":
+            out[f"p{last + 1}"] = max_pool_stride2(out[f"p{last}"])
+        else:
+            name = self.top_block_in_feature
+            p6 = self.top_block.p6(bottom_up[name] if name in bottom_up else out[name])
+            out[f"p{last + 1}"] = p6
+            out[f"p{last + 2}"] = self.top_block.p7(F.relu(p6))
         return out

@@ -90,20 +90,31 @@ class FrozenBatchNorm2d(nn.Module):
         return x * mul.to(x.dtype) + add.to(x.dtype)
 
 
+class GroupNorm(nn.GroupNorm):
+    """torch GroupNorm over NHWC, statistics and affine in float32 (as flax
+    computes them for bfloat16 inputs), cast back to the activation dtype."""
+
+    def forward(self, x):
+        # torch.group_norm: F.group_norm refuses a group of one value (a 1x1 map)
+        y = torch.group_norm(to_nchw(x).float(), self.num_groups, self.weight, self.bias,
+                             self.eps)
+        return to_nhwc(y).to(x.dtype)
+
+
 def get_norm(norm: str, features: int, bn_eps: float = 1e-5) -> Optional[nn.Module]:
-    """'' | 'FrozenBN' | 'BN' | 'SyncBN'. The port is eval-only, where BN and
-    SyncBN are batch norm over the running statistics: the frozen module,
-    with ``bn_eps`` and d2's BatchNorm keys (weight, bias, running_mean,
-    running_var)."""
+    """'' | 'FrozenBN' | 'BN' | 'SyncBN' | 'GN'. The port is eval-only, where
+    BN and SyncBN are batch norm over the running statistics: the frozen
+    module, with ``bn_eps`` and d2's BatchNorm keys (weight, bias,
+    running_mean, running_var). GN is 32 groups at eps 1e-5."""
     if not norm:
         return None
     if norm == "FrozenBN":
         return FrozenBatchNorm2d(features)
     if norm in ("BN", "SyncBN"):
         return FrozenBatchNorm2d(features, eps=bn_eps)
-    raise NotImplementedError(
-        f"norm {norm!r}: only FrozenBN, BN and SyncBN (eval) are ported "
-        "(ROADMAP Queue 1 item 12)")
+    if norm == "GN":
+        return GroupNorm(32, features, eps=1e-5)
+    raise ValueError(f"unknown norm {norm!r}")
 
 
 # ---------------------------------------------------------------------------

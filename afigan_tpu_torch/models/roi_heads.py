@@ -1,6 +1,7 @@
 """Standard ROI heads, inference branch (counterpart of
 ``afigan_tpu/models/roi_heads.py::StandardROIHeads``): multi-level ROI
-pooling (``ops/roi_align.py``; the CUDA pool kernel on the card), the
+pooling (``ops/roi_align.py::pool_rois`` by ``TPU.POOLER_IMPL``; CUDA kernels
+on the card), the
 Fast R-CNN box branch with fixed-shape per-image detection, and the mask
 branch on the detected boxes."""
 
@@ -12,7 +13,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.boxes import Box2BoxTransform
-from ..ops.roi_align import multilevel_roi_align
+from ..ops.roi_align import POOLER_IMPLS, pool_rois
 from .box_head import (Detections, FastRCNNConvFCHead, FastRCNNOutputLayers,
                        fast_rcnn_inference_single)
 from .mask_head import MaskRCNNConvUpsampleHead
@@ -32,8 +33,11 @@ class StandardROIHeads(nn.Module):
                  mask_conv_dim: int = 256, cls_agnostic_mask: bool = False,
                  score_thresh: float = 0.05, nms_thresh: float = 0.5,
                  detections_per_image: int = 100, sampling_ratio: int = 2,
-                 aligned: bool = True, device=None):
+                 aligned: bool = True, pooler_impl: str = "pallas", device=None):
         super().__init__()
+        if pooler_impl not in POOLER_IMPLS:
+            raise ValueError(f"TPU.POOLER_IMPL {pooler_impl!r}: one of {POOLER_IMPLS}")
+        self.pooler_impl = pooler_impl
         self.num_classes = num_classes
         self.in_features = tuple(in_features)
         self.strides = tuple(strides)
@@ -72,8 +76,8 @@ class StandardROIHeads(nn.Module):
         """features dict of (B,H,W,C); boxes (B,R,4) → (B*R, P, P, C) in
         the features' dtype (the heads' compute dtype)."""
         feats = [features[f] for f in self.in_features]
-        pooled = multilevel_roi_align(feats, boxes, self.strides, resolution,
-                                      self.sampling_ratio, self.aligned)
+        pooled = pool_rois(self.pooler_impl, feats, boxes, self.strides, resolution,
+                           self.sampling_ratio, self.aligned)
         return pooled.reshape(-1, *pooled.shape[2:]).to(feats[0].dtype)
 
     def forward(self, features: Dict[str, torch.Tensor], proposals: RPNOutput,

@@ -30,6 +30,7 @@ SOURCES = {
     "afi_upsample": ("afi_upsample.cu", "afi_conv_common.cuh"),
     "layer_norm": ("layer_norm.cu",),
     "window_attention": ("window_attention.cu",),
+    "window_gather": ("window_gather.cu",),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,7 +42,8 @@ PTXAS_LOG: Dict[str, str] = {}
 # Launches of the hand-written kernels, by the JAX kernel each replaces.
 # A wrapper adds one where it launches a kernel, and nowhere else.
 LAUNCHES: Dict[str, int] = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0,
-                            "roi_pool": 0, "layer_norm": 0, "window_attention": 0}
+                            "roi_pool": 0, "layer_norm": 0, "window_attention": 0,
+                            "window_gather": 0}
 
 
 def reset_launches() -> None:
@@ -127,6 +129,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "window_attention":
         fn = lib.window_attention_forward
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F, I, P]
+    elif name == "window_gather":
+        fn = lib.window_gather_forward
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, P]
     fn.restype = I
 
 

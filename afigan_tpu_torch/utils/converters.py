@@ -11,6 +11,22 @@ HWIO→OIHW (conv), HWIO(in,out)→IOHW (transposed conv), (in,out)→(out,in)
 BiFPN pyramids with the AF interpolator, the RPN, and the standard and
 cascade ROI heads (batch-norm statistics from ``batch_stats``).
 
+FCOS and CenterMask have no names in the JAX package's converter; theirs
+follow AdelaiDet and CenterMask2:
+
+====================================================  ==========================================
+flax path                                             state-dict key
+====================================================  ==========================================
+``backbone/pyramid/top_block/p{6,7}/conv``            ``backbone.top_block.p{6,7}``
+``fcos_head/{cls,bbox}_tower{i}/conv``                ``proposal_generator.fcos_head.{cls,bbox}_tower.{3i}`` (``{2i}`` without a norm)
+``fcos_head/{cls,bbox}_tower{i}/norm/{scale,bias}``   ``...{cls,bbox}_tower.{3i+1}.{weight,bias}``
+``fcos_head/{cls_logits,bbox_pred,ctrness}/conv``     ``proposal_generator.fcos_head.{cls_logits,bbox_pred,ctrness}``
+``fcos_head/scale_{l}``                               ``proposal_generator.fcos_head.scales.{l}.scale``
+``mask_head/mask_fcn{i}/conv``                        ``roi_heads.mask_head.mask_fcn{i}``
+``mask_head/sam/sam_conv/conv``                       ``roi_heads.mask_head.spatialAtt.conv``
+``mask_head/deconv``, ``mask_head/predictor/conv``    ``roi_heads.mask_head.{deconv,predictor}``
+====================================================  ==========================================
+
 Numpy only; ``load_state_dict`` reads d2 / Caffe2 ``.pkl`` and torch ``.pth``
 files for ``MODEL.WEIGHTS``.
 """
@@ -182,12 +198,53 @@ def _bifpn_key(p: Tuple[str, ...]) -> Optional[Tuple[str, Callable]]:
     return f"{base}.{p[1]}.{leaf}", tf
 
 
-def translate_path(path: Tuple[str, ...],
-                   fc1_channels: Dict[str, int]) -> Optional[Tuple[str, Callable]]:
+def _fcos_key(p: Tuple[str, ...], tower_step: int) -> Optional[Tuple[str, Callable]]:
+    """fcos_head subtree path → AdelaiDet key."""
+    pre = "proposal_generator.fcos_head."
+    m = re.match(r"^scale_(\d+)$", p[0])
+    if m and len(p) == 1:
+        return f"{pre}scales.{m.group(1)}.scale", ident
+    m = re.match(r"^(cls_tower|bbox_tower)(\d+)$", p[0])
+    if m:
+        idx = int(m.group(2)) * tower_step
+        if p[1] == "conv":
+            name, tf = _conv_leaf(p[2])
+            return f"{pre}{m.group(1)}.{idx}.{name}", tf
+        if p[1] == "norm" and p[2] in ("scale", "bias"):
+            return f"{pre}{m.group(1)}.{idx + 1}.{_NORM_LEAF[p[2]]}", ident
+        return None
+    if p[0] in ("cls_logits", "bbox_pred", "ctrness") and p[1] == "conv":
+        name, tf = _conv_leaf(p[2])
+        return f"{pre}{p[0]}.{name}", tf
+    return None
+
+
+def _sag_mask_key(p: Tuple[str, ...]) -> Optional[Tuple[str, Callable]]:
+    """CenterMask mask_head subtree path → CenterMask2 key."""
+    pre = "roi_heads.mask_head."
+    if p[0] == "deconv" and len(p) == 2:
+        return (pre + "deconv.weight", inv_deconv) if p[1] == "kernel" else (
+            pre + "deconv.bias", ident)
+    if p[:2] == ("sam", "sam_conv") and p[2] == "conv":
+        name, tf = _conv_leaf(p[3])
+        return f"{pre}spatialAtt.conv.{name}", tf
+    if (re.match(r"^mask_fcn\d+$", p[0]) or p[0] == "predictor") and p[1] == "conv":
+        name, tf = _conv_leaf(p[2])
+        return f"{pre}{p[0]}.{name}", tf
+    return None
+
+
+def translate_path(path: Tuple[str, ...], fc1_channels: Dict[str, int],
+                   tower_step: int = 3) -> Optional[Tuple[str, Callable]]:
     """Flax params / batch_stats path → (d2 key, inverse transform), or
     None. ``fc1_channels``: per box head (its flax name), the channels of
-    the map that its first FC flattens."""
+    the map that its first FC flattens. ``tower_step``: modules per FCOS tower
+    conv (3 with a norm: conv, norm, ReLU; 2 without)."""
     p = path
+    if p[0] == "fcos_head":
+        return _fcos_key(p[1:], tower_step)
+    if p[0] == "mask_head":
+        return _sag_mask_key(p[1:])
     if p[0] == "backbone" and p[1] == "bottom_up" and p[2].startswith(("stem", "res")):
         # ("stem"|"resN/blockK", conv, "conv"|"norm", leaf)
         blk, layer = p[2], p[3]
@@ -217,6 +274,9 @@ def translate_path(path: Tuple[str, ...],
         if re.match(r"^fpn_(lateral|output)\d$", p[2]) and p[3] == "conv":
             name, tf = _conv_leaf(p[4])
             return f"backbone.{p[2]}.{name}", tf
+        if p[2] in ("top_block/p6", "top_block/p7") and p[3] == "conv":
+            name, tf = _conv_leaf(p[4])
+            return f"backbone.{p[2].replace('/', '.')}.{name}", tf
         return None
     if p[0] == "proposal_generator" and p[2] == "conv":
         name, tf = _conv_leaf(p[3])
@@ -294,12 +354,14 @@ def variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
 
     Raises KeyError naming any path the mapping does not know, so a
     silently-dropped weight cannot pass a strict load."""
-    fc1_channels = _fc1_channels(variables["params"])
+    params = variables["params"]
+    fc1_channels = _fc1_channels(params)
+    tower_step = 3 if "norm" in params.get("fcos_head", {}).get("cls_tower0", {}) else 2
     out: Dict[str, np.ndarray] = {}
     unknown = []
     for coll in ("params", "batch_stats"):
         for path, leaf in _leaves(variables.get(coll, {})):
-            tr = translate_path(path, fc1_channels)
+            tr = translate_path(path, fc1_channels, tower_step)
             if tr is None:
                 unknown.append("/".join(path))
                 continue

@@ -7,12 +7,14 @@ Phases, always all (any failure exits non-zero; nothing falls back to the
 CPU):
   1. build    compile every CUDA kernel from ``afigan_tpu_torch/csrc`` (one nvcc
               per source, in parallel); print the card and its power limit
-  2. kernels  each of the six kernels against its plain PyTorch version at the
-              shapes of the path that runs it, float32 with TF32 off and
+  2. kernels  each of the seven kernels against its plain PyTorch version at
+              the shapes of the paths that run it (the generator and the pooler
+              at 256 and at 160 channels), float32 with TF32 off and
               bfloat16: error, median CUDA-event time of both and of the one
               PyTorch call that computes the same function where there is one
-              (``F.layer_norm``, ``scaled_dot_product_attention``: yardsticks,
-              used nowhere in the port), and the least time the card could
+              (``F.layer_norm``, ``scaled_dot_product_attention``, an
+              advanced-indexing gather: yardsticks, used nowhere in the port),
+              and the least time the card could
               take (bytes over 3.35 TB/s against operations over 989 TFLOP/s in
               bf16, 67 in fp32). In bfloat16 each of the generator's 19
               launches is also held, on its own inputs, against the float32
@@ -32,10 +34,18 @@ CPU):
               flagship YAML, 896x1408 canvas, batch 2, bf16, the same two
               traffics, launch counts asserted per batch (24 window attentions,
               55 LayerNorms, 28 generator calls, 3 pooler calls)
-  5. card_vs_cpu  for each of the two models in float32 (TF32 off) on a small
-              canvas: the GPU (kernels) and the CPU (plain versions) on the
-              same weights; detections must agree at the golden-regression
-              tolerances. The Swin model is narrow (embed 32, window 4)
+  5. slice_centermask  CenterMask (FCOS + SAG mask head) on ResNet-50 + BiFPN
+              (6 layers x 160 channels, shared AF interpolator) at full width,
+              896x1408 canvas, batch 2, bf16, the same two traffics, each under
+              ``TPU.POOLER_IMPL`` ``pallas`` (one ``roi_pool`` launch a batch) and
+              ``windowed`` (one ``window_gather`` launch and one ``roi_pool``
+              launch over the overflow slots a batch); 24 generator calls a
+              batch; on one batch the two poolers' features and masks must agree
+  6. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
+              and the CPU (plain versions) on the same weights; detections must
+              agree at the golden-regression tolerances. The R-50 model under
+              both poolers, a narrow Swin model (embed 32, window 4) and a
+              narrow CenterMask under ``windowed``
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -43,6 +53,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -65,6 +76,8 @@ KERNELS = {
                          "afigan_tpu/ops/pallas/window_attention.py:85", "swin"),
     "layer_norm": ("afigan_tpu_torch/csrc/layer_norm.cu",
                    "afigan_tpu/ops/pallas/layer_norm.py:49", "swin"),
+    "window_gather": ("afigan_tpu_torch/csrc/window_gather.cu",
+                      "afigan_tpu/ops/pallas/window_gather.py:44", "centermask_windowed"),
 }
 
 # max|kernel - plain| <= rel * max|plain| + abs
@@ -84,6 +97,9 @@ TOL = {
     # averaging out over the 144-term sum), then the output rounds once
     ("attn", "float32"): (1e-4, 1e-5),
     ("attn", "bfloat16"): (1e-2, 0.0),
+    # a copy has no tolerance
+    ("copy", "float32"): (0.0, 0.0),
+    ("copy", "bfloat16"): (0.0, 0.0),
 }
 # one bfloat16 launch of the generator against the float32 plain conv on the
 # same bf16 values: the kernel accumulates in float32 and rounds once, so
@@ -100,11 +116,15 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 ELT = {"bfloat16": 2, "float32": 4}
 DTYPES = ("float32", "bfloat16")
 
+# both BiFPN models pad the 832x1344 bucket to the pyramid's 128
 R50_CANVAS, SWIN_CANVAS = (832, 1344), (896, 1408)
 SIZES = [(800, 1333), (800, 1067)]
-# generator inputs (H, W) per batch and how often each is called
-GEN_LEVELS = {"r50": [((26, 42), 1), ((52, 84), 1), ((104, 168), 1)],
-              "swin": [((7, 11), 7), ((14, 22), 7), ((28, 44), 7), ((56, 88), 7)]}
+# path → (pyramid channels, generator inputs (H, W) per batch and how often
+# each is called)
+GEN_LEVELS = {"r50": (256, [((26, 42), 1), ((52, 84), 1), ((104, 168), 1)]),
+              "swin": (256, [((7, 11), 7), ((14, 22), 7), ((28, 44), 7), ((56, 88), 7)]),
+              "centermask": (160, [((7, 11), 6), ((14, 22), 6), ((28, 44), 6),
+                                   ((56, 88), 6)])}
 
 
 class Tally:
@@ -194,7 +214,8 @@ def reject(name, wrong, want, kind, dtype_name):
     err = float((wrong.float() - want.float()).abs().max())
     rel, ab = TOL[(kind, dtype_name)]
     bound = rel * float(want.float().abs().max()) + ab
-    log(f"  {name}: max_abs_err={err:.3e} = {err / bound:.1f}x bound (must exceed it)")
+    ratio = f"{err / bound:.1f}x bound" if bound else "bound 0"
+    log(f"  {name}: max_abs_err={err:.3e} = {ratio} (must exceed it)")
     if not err > bound:
         raise AssertionError(f"{name}: the bound {bound} does not reject it ({err})")
 
@@ -297,26 +318,28 @@ def _upsample_work(b, h, w, c, elt):
 
 
 def kernels_generator(results):
-    """afi_chain and afi_upsample at the generator's shapes on both paths,
-    and afi_rdb (one dense block) at the R-50 path's."""
+    """afi_chain and afi_upsample at the generator's shapes on the three
+    paths (256 and 160 channels), and afi_rdb (one dense block) at the R-50
+    path's."""
     import torch
 
     from afigan_tpu_torch.ops.kernels import afi_generator as ag
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    B, C, G = 2, 256, 32
-    head, rdbs, mid, up, tail = _gen_weights(C, G, 3, gen, dev)
-    up_args = (*mid, *up, *tail)
+    B, G = 2, 32
+    weights = {c: _gen_weights(c, G, 3, gen, dev) for c in (256, 160)}
     for dtype_name in DTYPES:
         dt = getattr(torch, dtype_name)
         elt = ELT[dtype_name]
-        for path, levels in GEN_LEVELS.items():
+        for path, (C, levels) in GEN_LEVELS.items():
             if path == "swin" and dtype_name == "float32":
                 continue  # the Swin slice runs in bf16; fp32 is timed at the R-50 shapes
+            head, rdbs, mid, up, tail = weights[C]
+            up_args = (*mid, *up, *tail)
             for (h, w), count in levels:
                 x = torch.randn((B, h, w, C), generator=gen).to(dev, dt)
-                tag = f"{dtype_name} {path} {h}x{w}"
+                tag = f"{dtype_name} {path} C={C} {h}x{w}"
                 chain_k = lambda: ag.fused_generator_chain(x, *head, rdbs, 0.2)  # noqa: E731
                 chain_p = lambda: ag.fused_generator_chain_plain(x, *head, rdbs, 0.2)  # noqa: E731
                 r_k, r_p = chain_k(), chain_p()
@@ -368,6 +391,7 @@ def kernels_generator(results):
     # the N_RDB 1 generator end to end, kernels against plain versions
     from afigan_tpu_torch.models.afi import AFIGenerator
 
+    C = 256
     g1 = AFIGenerator(C, 1, G, device=dev)
     g1.init_weights(torch.Generator().manual_seed(1))
     for m in g1.modules():  # Kaiming scale, as _gen_weights
@@ -393,7 +417,8 @@ def kernels_roi_pool(results):
     cases = [("r50", R50_CANVAS, (4, 8, 16, 32), 256, 7, 1000, 1),
              ("r50", R50_CANVAS, (4, 8, 16, 32), 256, 14, 100, 1),
              (None, R50_CANVAS, (4, 8, 16, 32), 160, 7, 100, 0),
-             ("swin", SWIN_CANVAS, (8, 16, 32, 64), 256, 7, 1000, 3)]
+             ("swin", SWIN_CANVAS, (8, 16, 32, 64), 256, 7, 1000, 3),
+             ("centermask", SWIN_CANVAS, (8, 16, 32), 160, 14, 100, 1)]
     for dtype_name in DTYPES:
         dt = getattr(torch, dtype_name)
         for path, canvas, strides, c, p, n, count in cases:
@@ -550,13 +575,86 @@ def kernels_window_attention(results):
             del am
 
 
+def kernels_window_gather(results):
+    """window_gather against its plain version (a stack of slices), bit for
+    bit, at the concatenated pyramids of the paths that run it."""
+    import torch
+
+    from afigan_tpu_torch.ops.kernels.window_gather import (check_starts, gather_windows,
+                                                            gather_windows_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5)
+    B, WIN = 2, 48
+
+    def pyramid(canvas, strides):  # (rows of the batch's concat, its width)
+        hs = [max(canvas[0] // s, WIN) for s in strides]
+        return B * sum(hs), max(canvas[1] // strides[0], WIN)
+
+    # (path, (sumH, Wmax), C, window, ROIs per batch, a view at an odd offset)
+    cases = [("centermask_windowed", pyramid(SWIN_CANVAS, (8, 16, 32)), 160, WIN, 200, False),
+             ("r50_box_pool_shape", pyramid(R50_CANVAS, (4, 8, 16, 32)), 256, WIN, 2000, False),
+             (None, (40, 33), 100, 16, 7, True)]
+    for dtype_name in DTYPES:
+        dt = getattr(torch, dtype_name)
+        elt = ELT[dtype_name]
+        for path, (sum_h, wmax), c, win, r, odd in cases:
+            n = sum_h * wmax * c
+            buf = torch.randn((n + 1,), generator=gen).to(dev, dt)
+            concat = (buf[1:] if odd else buf[:n]).view(sum_h, wmax, c)
+            rows = torch.randint(0, sum_h - win + 1, (r,), generator=gen).to(dev)
+            cols = torch.randint(0, wmax - win + 1, (r,), generator=gen).to(dev)
+            rows[0], cols[0] = sum_h - win, wmax - win  # the last window that fits
+            ar = torch.arange(win, device=dev)
+            fk = lambda: gather_windows(concat, rows, cols, win)  # noqa: E731
+            fp = lambda: gather_windows_plain(concat, rows, cols, win)  # noqa: E731
+            fl = lambda: concat[(rows[:, None] + ar)[:, :, None],  # noqa: E731
+                                (cols[:, None] + ar)[:, None, :]]
+            check_starts(concat, rows, cols, win)
+            o_k, o_p = fk(), fp()
+            torch.cuda.synchronize()
+            tag = f"{dtype_name} ({sum_h}, {wmax}, {c}) R={r} window={win}"
+            e = compare(f"window_gather {tag}", o_k, o_p, "copy", dtype_name)
+            if not torch.equal(o_k, o_p) or not torch.equal(fl(), o_p):
+                raise AssertionError(f"window_gather {tag}: not a bit-for-bit copy")
+            reject(f"window_gather plain with column starts shifted by one {tag}",
+                   gather_windows_plain(concat, rows, torch.clamp(cols - 1, min=0) + (cols == 0),
+                                        win), o_p, "copy", dtype_name)
+            del o_k, o_p
+            if path is None:
+                continue
+            tk, tp, tl = median_ms(fk), median_ms(fp, iters=3, inner=1), median_ms(fl)
+            # every output byte written once; of the source only the bytes
+            # under some window, each read once however many windows overlap
+            # there (counted from this run's starts); the two int32 starts
+            under = torch.zeros((sum_h, wmax), dtype=torch.bool, device=dev)
+            under[(rows[:, None] + ar)[:, :, None], (cols[:, None] + ar)[:, None, :]] = True
+            written, read = r * win * win * c * elt, int(under.sum()) * c * elt
+            nbytes = written + read + 8 * r
+            log(f"  window_gather {tag}: kernel {tk:.3f} ms (writes {written / 1e6:.1f} MB + "
+                f"distinct reads {read / 1e6:.1f} MB of a {n * elt / 1e6:.1f} MB source, "
+                f"{nbytes / tk / 1e9:.2f} TB/s) plain {tp:.3f} ms indexing gather {tl:.3f} ms")
+            tally(results, "window_gather", path, dtype_name).add(
+                tk, tp, nbytes, 0, dtype_name, e, 1, tl)
+            # yardsticks of the card's copy rate at this size: a contiguous
+            # device copy of the output (reads as much as it writes) and a fill
+            o_k = fk()
+            dst = torch.empty_like(o_k)
+            log(f"    the output's {written / 1e6:.1f} MB: contiguous copy_ "
+                f"{median_ms(lambda: dst.copy_(o_k)):.3f} ms, zero_ "
+                f"{median_ms(lambda: dst.zero_()):.3f} ms")
+            del o_k, dst
+            del buf, concat
+            torch.cuda.empty_cache()
+
+
 def phase_kernels(results):
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     for part in (kernels_generator, kernels_roi_pool, kernels_layer_norm,
-                 kernels_window_attention):
+                 kernels_window_attention, kernels_window_gather):
         part(results)
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
@@ -622,8 +720,9 @@ def run_batches(name, cfg, batches, per_batch=None):
         dets, masks = predict(model, batch)
         torch.cuda.synchronize()
         ms.append(1000 * (time.perf_counter() - t0))
-        check_outputs(dets, masks, 2, cfg.TEST.DETECTIONS_PER_IMAGE,
-                      28 if cfg.MODEL.MASK_ON else None)
+        fcos = cfg.MODEL.META_ARCHITECTURE in ("FCOS", "CenterMask")
+        check_outputs(dets, masks, 2, cfg.MODEL.FCOS.POST_NMS_TOPK_TEST if fcos
+                      else cfg.TEST.DETECTIONS_PER_IMAGE, 28 if cfg.MODEL.MASK_ON else None)
         valid.append(int(dets.valid.sum()))
     counts = dict(LAUNCHES)
     log(f"  {name}: launches in {len(batches)} batches " + json.dumps(counts))
@@ -661,25 +760,36 @@ def run_slice(results, path, make_cfg, canvas, per_batch, n_batches):
     cfg = make_cfg()
     cfg.MODEL.PIXEL_STD = GOLDEN_PIXEL_STD
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    cfg.MODEL.FCOS.INFERENCE_TH_TEST = 0.0
     model, valid, _ = run_batches(f"{path} with 100 detections per image", cfg, batches,
                                   per_batch)
     if min(valid) == 0:
         raise AssertionError("a batch without detections")
     profile_batch(model, batches[-1])
-    del model
+    return model, batches[-1]
 
 
 # kernel launches that one batch of each path must make: the generator is 16
 # chain + 3 upsample launches a call (3 calls on the FPN, 28 on the BiFPN),
 # the pooler one launch a call
 R50_PER_BATCH = {"afi_chain": 3 * 16, "afi_upsample": 3 * 3, "roi_pool": 2,
-                 "afi_rdb": 0, "layer_norm": 0, "window_attention": 0}
+                 "afi_rdb": 0, "layer_norm": 0, "window_attention": 0, "window_gather": 0}
 SWIN_PER_BATCH = {"afi_chain": 28 * 16, "afi_upsample": 28 * 3, "roi_pool": 3,
-                  "afi_rdb": 0, "layer_norm": 55, "window_attention": 24}
+                  "afi_rdb": 0, "layer_norm": 55, "window_attention": 24,
+                  "window_gather": 0}
 # with one dense block: the head conv + 5 dense convs a call, all launches
 # of the conv kernel, counted as afi_rdb
 RDB1_PER_BATCH = {"afi_chain": 0, "afi_upsample": 3 * 3, "roi_pool": 2,
-                  "afi_rdb": 3 * 6, "layer_norm": 0, "window_attention": 0}
+                  "afi_rdb": 3 * 6, "layer_norm": 0, "window_attention": 0,
+                  "window_gather": 0}
+# CenterMask: 6 BiFPN layers x 4 generator calls; one mask pool a batch. Under
+# ``windowed`` the pool is one window_gather launch (the batch's ROIs in one)
+# and one roi_pool launch over the 64 overflow slots per image, which runs
+# whether or not a ROI overflows (fixed shapes, no device synchronisation)
+CENTERMASK_PER_BATCH = {"afi_chain": 24 * 16, "afi_upsample": 24 * 3, "roi_pool": 1,
+                        "afi_rdb": 0, "layer_norm": 0, "window_attention": 0,
+                        "window_gather": 0}
+CENTERMASK_WINDOWED_PER_BATCH = dict(CENTERMASK_PER_BATCH, window_gather=1)
 
 
 def phase_slice(results, n_batches=10):
@@ -701,6 +811,78 @@ def phase_slice_swin(results, n_batches=10):
     run_slice(results, "swin", swin_path_cfg, SWIN_CANVAS, SWIN_PER_BATCH, n_batches)
 
 
+def centermask_cfg(pooler_impl):
+    from afigan_tpu_torch.config import centermask_path_cfg
+
+    cfg = centermask_path_cfg()
+    cfg.TPU.POOLER_IMPL = pooler_impl
+    return cfg
+
+
+def phase_slice_centermask(results, n_batches=10):
+    import torch
+
+    from afigan_tpu_torch.ops.roi_align import (multilevel_roi_align_pallas,
+                                                multilevel_roi_align_windowed)
+
+    run_slice(results, "centermask", lambda: centermask_cfg("pallas"), SWIN_CANVAS,
+              CENTERMASK_PER_BATCH, n_batches)
+    model, batch = run_slice(results, "centermask_windowed", lambda: centermask_cfg("windowed"),
+                             SWIN_CANVAS, CENTERMASK_WINDOWED_PER_BATCH, n_batches)
+    # the two poolers on one model and one batch's 100 detections per image:
+    # direct sampling (pallas) against copy + two products (windowed)
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        images = torch.as_tensor(batch["image"]).to(dev)
+        features, dets = model.detect(images, torch.as_tensor(batch["image_sizes"]).to(dev))
+        feats = [features[f] for f in model.mask_in_features]
+        args = (model.mask_strides, model.mask_res, 2, True)
+        # the float32 pools, before the heads' cast
+        pooled = {"pallas": multilevel_roi_align_pallas(feats, dets.boxes, *args)}
+        pooled["windowed"], over = multilevel_roi_align_windowed(
+            feats, dets.boxes, *args, return_overflow=True)
+        # a pool that is wrong by one p3 cell, which both checks must reject
+        pooled["shifted"] = multilevel_roi_align_pallas(feats, dets.boxes + 8.0, *args)
+        def flat(x):  # the head's input: the pool rounded to the features' dtype
+            return x.reshape(-1, *x.shape[2:]).to(feats[0].dtype)
+
+        def rms(a, b):
+            return float((a - b).pow(2).mean().sqrt())
+
+        head = model.roi_heads.mask_head
+        logits = {impl: head(flat(x)).float() for impl, x in pooled.items()}  # every class
+        # the head's own bf16 rounding on one pool: the same weights and the
+        # same rounded pool through a float32 copy of the head
+        noise = rms(logits["pallas"], copy.deepcopy(head).float()(flat(pooled["pallas"]).float()))
+        torch.cuda.synchronize()
+        log(f"  pallas vs windowed: {int(dets.valid.sum())} valid detections, "
+            f"{over.sum(dim=1).tolist()} per image overflow the 48-pixel window "
+            "(recomputed exactly, up to 64 per image)")
+        if int(over.sum(dim=1).max()) > 64:
+            raise AssertionError("more overflow ROIs than slots: the poolers differ by design")
+        compare("mask pool, windowed vs pallas (bf16 features)", pooled["windowed"],
+                pooled["pallas"], "pool", "bfloat16")
+        reject("mask pool of boxes shifted by 8 px vs pallas", pooled["shifted"],
+               pooled["pallas"], "pool", "bfloat16")
+        # the mask logits and not their sigmoid: the predictor's init (std
+        # 0.001) keeps every probability at 0.5, where any pool would agree.
+        # The two pools must move the logits by less (rms) than the head's own
+        # bf16 rounding does, and a pool one cell off by more
+        d_w = rms(logits["windowed"], logits["pallas"])
+        d_s = rms(logits["shifted"], logits["pallas"])
+        log(f"  mask logits, rms {rms(logits['pallas'], 0.0):.3e}: windowed vs pallas "
+            f"{d_w:.3e}, boxes shifted by 8 px vs pallas {d_s:.3e}, bound {noise:.3e} "
+            "(the bf16 head vs its float32 copy on the pallas pool)")
+        if not d_w <= noise < d_s:
+            raise AssertionError("mask logits: windowed must lie within the bound of pallas "
+                                 "and the shifted pool outside it")
+        # the pool alone, both ways, on these detections
+        for impl in ("pallas", "windowed"):
+            model.pooler_impl = impl
+            t = median_ms(lambda: model._pool(features, dets.boxes))
+            log(f"  mask pool of 2 x 100 ROIs under {impl}: {t:.3f} ms")
+
+
 def profile_batch(model, batch):
     """One batch under torch.profiler (device kernel time by name and the
     device's busy share of the wall time), then one batch split by layer on
@@ -719,18 +901,34 @@ def profile_batch(model, batch):
         wall = time.perf_counter() - t0
     # device-side events only: kernels and copies, not the record_function
     # ranges' GPU spans (first to last kernel, idle gaps included)
-    ranges = ("backbone", "afi_generator", "rpn", "roi_heads")
+    ranges = ("backbone", "afi_generator", "rpn", "roi_heads", "fcos_head", "fcos_decode",
+              "mask_pool", "mask_head")
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.key not in ranges]
     busy = sum(e.self_device_time_total for e in kernels) / 1000.0
     log(f"  profile: wall {1000 * wall:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / (1000 * wall):.1f} % of wall)")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    ours = ("afi::", "roi_pool_kernel", "layer_norm_kernel", "window_attention_kernel")
+    ours = ("afi::", "roi_pool_kernel", "layer_norm_kernel", "window_attention_kernel",
+            "window_gather_kernel")
     for i, e in enumerate(top):  # the 14 largest, and every kernel of the port
         if i < 14 or any(name in e.key for name in ours):
             log(f"  kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} "
                 f"{e.key[:90]}")
+
+    if hasattr(model.roi_heads, "box_predictor"):
+        split_rcnn(model, batch)
+    else:
+        split_centermask(model, batch)
+
+
+def layer_marks(model, batch, mods, methods=()):
+    """One batch with a synchronize and a host time stamp before and after
+    every module of ``mods`` (and every call of the model's ``methods``):
+    [("start", t), ("name<", t), ("name>", t), ..., ("end", t)]."""
+    import torch
+
+    from afigan_tpu_torch.engine.inference import predict
 
     marks = []
 
@@ -740,6 +938,35 @@ def profile_batch(model, batch):
             marks.append((name, time.perf_counter()))
         return hook
 
+    handles = [h for n, m in mods.items() for h in (
+        m.register_forward_pre_hook(mark(n + "<")), m.register_forward_hook(mark(n + ">")))]
+    for name in methods:
+        def timed(*a, _orig=getattr(model, name), _name=name, **kw):
+            mark(_name + "<")()
+            out = _orig(*a, **kw)
+            mark(_name + ">")()
+            return out
+        setattr(model, name, timed)
+    mark("start")()
+    predict(model, batch)
+    mark("end")()
+    for h in handles:
+        h.remove()
+    for name in methods:
+        delattr(model, name)
+    return marks
+
+
+def log_layers(marks, stages):
+    total = marks[-1][1] - marks[0][1]
+    log(f"  layers (host clock, synchronized): {1000 * total:.1f} ms per batch")
+    for name, s in stages:
+        log(f"  layer {name:38s} {1000 * s:8.2f} ms {100 * s / total:5.1f} %")
+
+
+def split_rcnn(model, batch):
+    import torch
+
     rh = model.roi_heads
     cascade = isinstance(rh.box_predictor, torch.nn.ModuleList)
     mods = {"bottom_up": model.backbone.bottom_up, "afi": model.backbone.srf_module,
@@ -747,13 +974,7 @@ def profile_batch(model, batch):
             "box_predictor": rh.box_predictor[-1] if cascade else rh.box_predictor}
     if rh.mask_on:
         mods["mask_head"] = rh.mask_head
-    handles = [h for n, m in mods.items() for h in (
-        m.register_forward_pre_hook(mark(n + "<")), m.register_forward_hook(mark(n + ">")))]
-    mark("start")()
-    predict(model, batch)
-    mark("end")()
-    for h in handles:
-        h.remove()
+    marks = layer_marks(model, batch, mods)
     t = {}
     for name, ts in marks:
         t.setdefault(name, ts)
@@ -777,14 +998,31 @@ def profile_batch(model, batch):
             ("output", t["end"] - t["mask_head>"])]
     else:
         stages.append(("detection (decode, nms) + output", t["end"] - t["box_predictor>"]))
-    total = t["end"] - t["start"]
-    log(f"  layers (host clock, synchronized): {1000 * total:.1f} ms per batch")
-    for name, s in stages:
-        log(f"  layer {name:38s} {1000 * s:8.2f} ms {100 * s / total:5.1f} %")
+    log_layers(marks, stages)
+
+
+def split_centermask(model, batch):
+    head = model.proposal_generator.fcos_head
+    mods = {"bottom_up": model.backbone.bottom_up, "afi": model.backbone.srf_module,
+            "fcos_head": head, "mask_head": model.roi_heads.mask_head}
+    marks = layer_marks(model, batch, mods, methods=("_pool",))
+    t = dict(reversed(marks))  # the first stamp of each name
+    spans = [ts - s for (n, ts), (_, s) in zip(marks[1:], marks) if n == "afi>"]
+    afi = sum(spans)
+    log_layers(marks, [
+        ("input + normalise", t["bottom_up<"] - t["start"]),
+        ("bottom-up (ResNet)", t["bottom_up>"] - t["bottom_up<"]),
+        (f"afi generator x{len(spans)}", afi),
+        ("BiFPN nodes", t["fcos_head<"] - t["bottom_up>"] - afi),
+        ("FCOS head (towers over 5 levels)", t["fcos_head>"] - t["fcos_head<"]),
+        ("FCOS decode + NMS", t["_pool<"] - t["fcos_head>"]),
+        (f"mask pool ({model.pooler_impl})", t["_pool>"] - t["_pool<"]),
+        ("mask head", t["mask_head>"] - t["mask_head<"]),
+        ("output", t["end"] - t["mask_head>"])])
 
 
 # ---------------------------------------------------------------------------
-# phase 4: card vs CPU
+# last phase: card vs CPU
 # ---------------------------------------------------------------------------
 
 def narrow_swin_cfg():
@@ -800,6 +1038,19 @@ def narrow_swin_cfg():
         "MODEL.BIFPN.OUT_CHANNELS", "32", "MODEL.BIFPN.FPN_REPEAT", "2",
         "MODEL.AFI.GROWTH_RATE", "8", "MODEL.ROI_BOX_HEAD.CONV_DIM", "32",
         "MODEL.ROI_BOX_HEAD.FC_DIM", "64"])
+    return cfg
+
+
+def narrow_centermask_cfg():
+    """The CenterMask YAML at narrow widths: ResNet-50 at an eighth of its
+    widths, two BiFPN layers of 32 channels, growth 8, one tower conv, 3
+    classes, under the windowed pooler."""
+    cfg = centermask_cfg("windowed")
+    cfg.merge_from_list([
+        "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.RESNETS.STEM_OUT_CHANNELS", "16",
+        "MODEL.RESNETS.WIDTH_PER_GROUP", "8", "MODEL.BIFPN.OUT_CHANNELS", "32",
+        "MODEL.BIFPN.FPN_REPEAT", "2", "MODEL.AFI.GROWTH_RATE", "8",
+        "MODEL.FCOS.NUM_CONVS", "1", "MODEL.FCOS.NUM_CLASSES", "3"])
     return cfg
 
 
@@ -822,6 +1073,9 @@ def card_vs_cpu(name, cfg, canvas, size):
     cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 128
     cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 64
     cfg.TEST.DETECTIONS_PER_IMAGE = 16
+    cfg.MODEL.FCOS.INFERENCE_TH_TEST = 0.0
+    cfg.MODEL.FCOS.PRE_NMS_TOPK_TEST = 128
+    cfg.MODEL.FCOS.POST_NMS_TOPK_TEST = 16
     cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     gpu = build_model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict(), strict=True)
@@ -860,11 +1114,23 @@ def phase_card_vs_cpu(results):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    def need(launched, name, kernels):
+        for k in kernels:
+            if not launched.get(k):
+                raise AssertionError(f"the {name} model did not launch {k} on the card")
+
     card_vs_cpu("r50", main_path_cfg(), (320, 320), (288, 320))
-    launched = card_vs_cpu("narrow swin", narrow_swin_cfg(), (128, 256), (120, 250))
-    for k in ("layer_norm", "window_attention", "afi_chain", "afi_upsample", "roi_pool"):
-        if not launched.get(k):
-            raise AssertionError(f"the narrow Swin model did not launch {k} on the card")
+    # the same model through the windowed pooler: window_gather at C=256, with
+    # a box head (P=7, 64 proposals) and a mask head (P=14) behind it
+    cfg = main_path_cfg()
+    cfg.TPU.POOLER_IMPL = "windowed"
+    need(card_vs_cpu("r50 windowed", cfg, (320, 320), (288, 320)), "windowed R-50",
+         ("window_gather", "roi_pool", "afi_chain", "afi_upsample"))
+    need(card_vs_cpu("narrow swin", narrow_swin_cfg(), (128, 256), (120, 250)), "narrow Swin",
+         ("layer_norm", "window_attention", "afi_chain", "afi_upsample", "roi_pool"))
+    need(card_vs_cpu("narrow centermask windowed", narrow_centermask_cfg(), (128, 256),
+                     (120, 250)), "narrow CenterMask",
+         ("window_gather", "roi_pool", "afi_chain", "afi_upsample"))
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -893,6 +1159,7 @@ def main():
     results = {k: {} for k in KERNELS}
     for name, phase in (("kernels", phase_kernels), ("slice", phase_slice),
                         ("slice_swin", phase_slice_swin),
+                        ("slice_centermask", phase_slice_centermask),
                         ("card_vs_cpu", phase_card_vs_cpu)):
         t0 = time.perf_counter()
         log(f"== phase {name}")

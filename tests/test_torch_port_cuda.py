@@ -9,7 +9,11 @@ TF32 off: max|kernel - plain| <= 1e-4 * max|plain| + 1e-5; bfloat16:
 between stages, in another order than cuDNN's). Channel counts that are not
 multiples of 8 take the bf16 kernel's element-by-element loads. LayerNorm
 and window attention: 1e-2 * max|plain| in bfloat16 (one rounding of the
-output), at row lengths and window sizes on and off the vector paths.
+output), at row lengths and window sizes on and off the vector paths. The
+window extractor is a copy: exact equality, at the CenterMask mask-pool shape,
+the R-50 box-pool shape and a ragged one (C = 100 in a view at an odd offset,
+which takes the element-by-element loop). The generator and the pooler also run
+at 160 channels, the BiFPN pyramid of the FCOS / CenterMask configurations.
 """
 
 import numpy as np
@@ -22,7 +26,10 @@ from afigan_tpu_torch.ops.kernels.layer_norm import fused_layer_norm, fused_laye
 from afigan_tpu_torch.ops.kernels.roi_pool import roi_pool, roi_pool_plain
 from afigan_tpu_torch.ops.kernels.window_attention import (fused_window_attention,
                                                            fused_window_attention_plain)
-from afigan_tpu_torch.ops.roi_align import assign_boxes_to_levels
+from afigan_tpu_torch.ops.kernels.window_gather import (check_starts, gather_windows,
+                                                        gather_windows_plain)
+from afigan_tpu_torch.ops.roi_align import (assign_boxes_to_levels, multilevel_roi_align,
+                                            multilevel_roi_align_windowed)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,7 +59,8 @@ def _t(rng, *shape, scale=1.0):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("c,g,hw", [(64, 16, (13, 18)), (64, 16, (24, 40)), (20, 12, (13, 18))])
+@pytest.mark.parametrize("c,g,hw", [(64, 16, (13, 18)), (64, 16, (24, 40)), (20, 12, (13, 18)),
+                                    (160, 32, (14, 22))])
 def test_chain_kernel_matches_plain(dev, c, g, hw, dtype):
     rng = np.random.RandomState(0)
     x = _t(rng, 2, *hw, c).to(dev, dtype)
@@ -66,7 +74,8 @@ def test_chain_kernel_matches_plain(dev, c, g, hw, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("c,hw", [(64, (13, 18)), (64, (24, 40)), (20, (13, 18))])
+@pytest.mark.parametrize("c,hw", [(64, (13, 18)), (64, (24, 40)), (20, (13, 18)),
+                                  (160, (14, 22))])
 def test_upsample_kernel_matches_plain(dev, c, hw, dtype):
     rng = np.random.RandomState(1)
     r, x = _t(rng, 2, *hw, c).to(dev, dtype), _t(rng, 2, *hw, c).to(dev, dtype)
@@ -78,16 +87,77 @@ def test_upsample_kernel_matches_plain(dev, c, hw, dtype):
     _close(got, ag.fused_upsample_plain(r, x, *w), dtype)
 
 
-@pytest.mark.parametrize("c,p", [(256, 7), (160, 14)])
-def test_roi_pool_kernel_matches_plain(dev, c, p):
-    rng = np.random.RandomState(2)
+def _pool_inputs(rng, dev, c, dtype=torch.float32):
     strides = (4, 8, 16, 32)
-    feats = [_t(rng, 2, 128 // s, 192 // s, c).to(dev) for s in strides]
+    feats = [_t(rng, 2, 128 // s, 192 // s, c).to(dev, dtype) for s in strides]
     xy = rng.rand(2, 30, 2) * [170, 110]
     wh = rng.rand(2, 30, 2) * [120, 90] + 1
     boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)).to(dev)
+    return strides, feats, boxes
+
+
+@pytest.mark.parametrize("c,p,dtype", [(256, 7, torch.float32), (160, 14, torch.float32),
+                                       (160, 14, torch.bfloat16)])
+def test_roi_pool_kernel_matches_plain(dev, c, p, dtype):
+    strides, feats, boxes = _pool_inputs(np.random.RandomState(2), dev, c, dtype)
     lv = assign_boxes_to_levels(boxes, 2, 5)
-    _close(roi_pool(feats, boxes, lv, strides, p), roi_pool_plain(feats, boxes, lv, strides, p))
+    _close(roi_pool(feats, boxes, lv, strides, p), roi_pool_plain(feats, boxes, lv, strides, p),
+           dtype)
+
+
+# (R, window, C, sumH, Wmax, a view at an odd element offset)
+GATHER_SHAPES = [(200, 48, 160, 416, 176, False), (2000, 48, 256, 432, 336, False),
+                 (7, 16, 100, 40, 33, True)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r,window,c,sum_h,wmax,odd", GATHER_SHAPES)
+def test_window_gather_kernel_equals_plain(dev, r, window, c, sum_h, wmax, odd, dtype):
+    rng = np.random.RandomState(6)
+    n = sum_h * wmax * c
+    buf = torch.from_numpy(rng.randn(n + 1).astype(np.float32)).to(dev, dtype)
+    concat = buf[1:].view(sum_h, wmax, c) if odd else buf[:n].view(sum_h, wmax, c)
+    rows = torch.from_numpy(rng.randint(0, sum_h - window + 1, size=(r,))).to(dev)
+    cols = torch.from_numpy(rng.randint(0, wmax - window + 1, size=(r,))).to(dev)
+    rows[0], cols[0] = sum_h - window, wmax - window
+    n0 = LAUNCHES["window_gather"]
+    check_starts(concat, rows, cols, window)
+    got = gather_windows(concat, rows, cols, window)
+    assert LAUNCHES["window_gather"] == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (r, window, window, c)
+    assert torch.equal(got, gather_windows_plain(concat, rows, cols, window))
+
+
+def test_window_gather_wrapper_checks(dev):
+    x = torch.zeros(20, 20, 8, device=dev)
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    n0 = LAUNCHES["window_gather"]
+    assert tuple(gather_windows(x, none, none, 8).shape) == (0, 8, 8, 8)
+    assert LAUNCHES["window_gather"] == n0  # R = 0: no launch
+    one = torch.tensor([13], device=dev)
+    with pytest.raises(ValueError, match="leave"):
+        check_starts(x, one, one, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_windows(x.transpose(0, 1), one, one, 4)
+    with pytest.raises(ValueError, match="devices"):
+        gather_windows(x, one.cpu(), one.cpu(), 4)
+    with pytest.raises(TypeError):
+        gather_windows(x.half(), one, one, 4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [160, 256])
+def test_windowed_pooler_on_the_card(dev, c, dtype):
+    """One window_gather launch and one roi_pool launch (the overflow pass) a
+    call; against the per-point gather on the same tensors."""
+    strides, feats, boxes = _pool_inputs(np.random.RandomState(7), dev, c, dtype)
+    n0, n1 = LAUNCHES["window_gather"], LAUNCHES["roi_pool"]
+    got = multilevel_roi_align_windowed(feats, boxes, strides, 14)
+    assert (LAUNCHES["window_gather"], LAUNCHES["roi_pool"]) == (n0 + 1, n1 + 1)
+    want = multilevel_roi_align(feats, boxes, strides, 14)
+    rel, ab = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 0.0)}[dtype]
+    err = float((got - want).abs().max())
+    assert err <= rel * float(want.abs().max()) + ab, err
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -28,6 +28,7 @@ SUBPACKAGES = ["afigan_tpu_torch." + m for m in (
     "config", "data", "data.loader", "engine.inference", "evaluation", "models",
     "models.swin", "models.bifpn", "models.cascade_roi_heads", "ops.kernels.layer_norm",
     "ops.kernels.window_attention", "ops.kernels.afi_generator", "ops.kernels.roi_pool",
+    "ops.kernels.window_gather", "ops.roi_align", "models.fcos", "models.centermask",
     "utils.converters", "run_net")]
 
 

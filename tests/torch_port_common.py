@@ -96,9 +96,44 @@ def swin_cfg():
     return cfg
 
 
-def jax_and_port(cfg, canvas=(128, 128)):
+FCOS_OVERRIDES = [
+    "TPU.COMPUTE_DTYPE", "float32",
+    "MODEL.RESNETS.RES2_OUT_CHANNELS", "32",
+    "MODEL.RESNETS.STEM_OUT_CHANNELS", "16",
+    "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
+    "MODEL.FPN.OUT_CHANNELS", "32",
+    "MODEL.BIFPN.OUT_CHANNELS", "32",
+    "MODEL.BIFPN.FPN_REPEAT", "2",
+    "MODEL.AFI.N_RDB", "1",
+    "MODEL.AFI.GROWTH_RATE", "8",
+    "MODEL.FCOS.NUM_CLASSES", "3",
+    "MODEL.FCOS.NUM_CONVS", "1",
+    "MODEL.FCOS.INFERENCE_TH_TEST", "0.0",
+    "MODEL.FCOS.PRE_NMS_TOPK_TEST", "128",
+    "MODEL.FCOS.POST_NMS_TOPK_TEST", "16",
+    "TEST.DETECTIONS_PER_IMAGE", "16",
+    "MODEL.PIXEL_STD", "(57.375, 57.12, 58.395)",
+    "INPUT.MIN_SIZE_TEST", "96",
+    "INPUT.MAX_SIZE_TEST", "128",
+    "TPU.IMAGE_BUCKETS", "((128, 128),)",
+]
+
+
+def fcos_cfg(yaml_name):
+    """One of the FCOS / CenterMask inference YAMLs at narrow widths (the
+    golden FCOS test's settings: one tower conv, 3 classes, threshold 0, 128
+    candidates per level, 16 detections), float32, 128x128 canvas."""
+    from afigan_tpu_torch.config import cfg_from_yaml
+
+    cfg = cfg_from_yaml(f"inference/{yaml_name}")
+    cfg.merge_from_list(list(FCOS_OVERRIDES))
+    return cfg
+
+
+def jax_and_port(cfg, canvas=(128, 128), edit=None):
     """(JAX model, its PRNGKey(0) variables, the port model with the same
-    weights through ``variables_to_state_dict``)."""
+    weights through ``variables_to_state_dict``). ``edit`` maps the numpy
+    variables to the ones both models get."""
     from afigan_tpu.models import build_model as jax_build
     from afigan_tpu_torch.models import build_model
     from afigan_tpu_torch.utils.converters import variables_to_state_dict
@@ -107,6 +142,8 @@ def jax_and_port(cfg, canvas=(128, 128)):
     variables = jax.jit(lambda: jm.init(
         {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, *canvas, 3), jnp.float32),
         jnp.asarray([list(canvas)], jnp.int32)))()
+    if edit is not None:
+        variables = edit(jax.tree.map(np.asarray, variables))
     sd = variables_to_state_dict(jax.tree.map(np.asarray, variables))
     tm = build_model(cfg, device="cpu")
     tm.load_state_dict({k: torch.tensor(v) for k, v in sd.items()}, strict=True)
