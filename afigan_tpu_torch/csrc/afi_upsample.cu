@@ -24,20 +24,26 @@
 extern "C" int afi_subpixel_deconv(const void* x, const void* w_phases,
                                    const void* bias, void* out,
                                    int B, int H, int W, int cin, int cout,
-                                   int leaky, int dtype, void* stream) {
-  afi::ConvArgs a = {};
-  a.src[0] = x;
-  a.src_c[0] = cin;
-  a.n_src = 1;
-  a.cin = cin;
-  a.w = w_phases;
-  a.bias = bias;
-  a.out = out;
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  a.cout = cout;
-  a.leaky = leaky;
-  a.phases = 4;
-  return afi::launch_conv3x3(a, dtype, static_cast<cudaStream_t>(stream));
+                                   int leaky, int dtype, int tiling, void* stream) {
+  const afi::Plane p = {B, H, W, dtype, tiling, static_cast<cudaStream_t>(stream)};
+  return afi::deconv(p, x, cin, w_phases, bias, cout, leaky, out);
+}
+
+// fused_upsample's three launches in one call: mid conv + LReLU -> y
+// (B, H, W, C), the transposed conv + LReLU -> z (B, 2H, 2W, C), tail conv +
+// bilinear x2 skip of x -> out (B, 2H, 2W, C). Returns the first launch's
+// error that is not 0, or 0.
+extern "C" int afi_upsample_forward(const void* r, const void* x, const void* wmid,
+                                    const void* bmid, const void* wup, const void* bup,
+                                    const void* wtail, const void* btail, void* y, void* z,
+                                    void* out, int B, int H, int W, int C, int dtype,
+                                    int tiling, void* stream) {
+  const afi::Plane p = {B, H, W, dtype, tiling, static_cast<cudaStream_t>(stream)};
+  int rc = afi::conv(p, &r, &C, 1, wmid, bmid, C, 1, nullptr, 1.f, nullptr, 1.f, nullptr, y);
+  if (rc) return rc;
+  rc = afi::deconv(p, y, C, wup, bup, C, 1, z);
+  if (rc) return rc;
+  const afi::Plane p2 = {B, 2 * H, 2 * W, dtype, tiling, p.stream};
+  const void* zc = z;
+  return afi::conv(p2, &zc, &C, 1, wtail, btail, C, 0, nullptr, 1.f, nullptr, 1.f, x, out);
 }

@@ -25,8 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ...ops.kernels.afi_generator import (conv3x3, fused_generator_chain,
-                                          fused_rdb, fused_upsample)
+from ...ops.kernels.afi_generator import (GeneratorLayout, conv3x3, fused_generator_chain,
+                                          fused_rdb, fused_upsample, lay_out_generator)
 from ..layers import init_weight
 
 
@@ -74,6 +74,7 @@ class AFIGenerator(nn.Module):
             nn.Sequential(conv()),
         ])
         self.Generators = nn.ModuleList([body])
+        self._laid = self._laid_key = self._weights_kept = None
 
     def init_weights(self, gen: torch.Generator) -> None:
         """kaiming normal x0.1, zero bias (ref generator_rdb.py:57-62)."""
@@ -84,21 +85,52 @@ class AFIGenerator(nn.Module):
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
 
+    def _apply(self, fn, *args, **kwargs):
+        # a move or a cast may replace the parameters themselves
+        self._laid = self._laid_key = self._weights_kept = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _weights(self):
+        """(head weight, head bias, [per block w1..w5], mid, up, tail weights
+        and biases), collected once: the module's structure is fixed."""
+        if self._weights_kept is None:
+            head, rir, mid, up, tail = self.Generators[0]
+            self._weights_kept = (
+                head[0].weight, head[0].bias, [blk.weights() for blk in rir.RDBs],
+                mid[0].weight, mid[0].bias, up[0].weight, up[0].bias,
+                tail[0].weight, tail[0].bias)
+        return self._weights_kept
+
+    def laid_out(self, dtype) -> GeneratorLayout:
+        """The weights as the kernels read them in ``dtype``, laid out once
+        and kept: rebuilt when any parameter was written in place
+        (``load_state_dict`` and every other in-place write bump its
+        ``_version``), moved or cast (its storage changes), or when another
+        ``dtype`` is asked for."""
+        head_w, head_b, rdbs, *rest = self._weights()
+        params = (head_w, head_b, *(w for ws in rdbs for w in ws), *rest)
+        key = (dtype, *((p._version, p.data_ptr()) for p in params))
+        if self._laid_key != key:
+            with torch.no_grad():
+                self._laid = lay_out_generator(*self._weights(), dtype)
+            self._laid_key = key
+        return self._laid
+
     def forward(self, x):
-        head, rir, mid, up, tail = self.Generators[0]
+        head_w, head_b, rdb_ws, *up_ws = self._weights()
         rs = self.residual_scale
-        if len(rir.RDBs) == 3:
-            r = fused_generator_chain(x, head[0].weight, head[0].bias,
-                                      [blk.weights() for blk in rir.RDBs], rs)
+        # the plain versions on the CPU read the torch layout itself
+        laid = self.laid_out(x.dtype) if x.is_cuda else None
+        if len(rdb_ws) == 3:
+            r = fused_generator_chain(x, head_w, head_b, rdb_ws, rs, laid=laid)
         else:
             # the head conv is outside the dense-block kernel: one more
             # launch of the conv kernel, counted with the path it serves
-            h = y = conv3x3([x.contiguous()], head[0].weight, head[0].bias,
-                            leaky=True, counter="afi_rdb")
-            for blk in rir.RDBs[:-1]:
-                y = fused_rdb(y, blk.weights(), rs)
+            h = y = conv3x3([x.contiguous()], head_w, head_b, leaky=True, counter="afi_rdb",
+                            laid=laid and laid.head)
+            for i, ws in enumerate(rdb_ws[:-1]):
+                y = fused_rdb(y, ws, rs, laid=laid and laid.rdbs[i])
             # r = h + rs * RDB_n(y): the RiR residual rides on the last conv
-            r = fused_rdb(y, rir.RDBs[-1].weights(), rs, outer=h, outer_scale=rs)
-        return fused_upsample(r, x, mid[0].weight, mid[0].bias,
-                              up[0].weight, up[0].bias,
-                              tail[0].weight, tail[0].bias)
+            r = fused_rdb(y, rdb_ws[-1], rs, outer=h, outer_scale=rs,
+                          laid=laid and laid.rdbs[-1])
+        return fused_upsample(r, x, *up_ws, laid=laid and laid.upsample())

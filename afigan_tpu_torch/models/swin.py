@@ -105,16 +105,33 @@ class WindowAttention(nn.Module):
             "relative_position_index",
             torch.as_tensor(_rel_pos_index(window_size).reshape(-1), device=device),
             persistent=False)
+        self._bias, self._bias_key = None, None
+
+    def bias(self) -> torch.Tensor:
+        """The (NH, N, N) float32 relative-position bias as the kernel reads
+        it. It depends on the weights only, so it is gathered once and kept;
+        a change of the table (``load_state_dict`` and every other in-place
+        write bump its ``_version``; a move or a cast replaces its storage)
+        rebuilds it. Detached from the table: the port's Swin is inference
+        only, as the kernel is."""
+        table = self.relative_position_bias_table
+        key = (table._version, table.data_ptr(), table.device, table.dtype)
+        if self._bias_key != key:
+            n = self.window_size ** 2
+            with torch.no_grad():
+                b = table.detach()[self.relative_position_index].float()
+                self._bias = b.reshape(n, n, self.num_heads).permute(2, 0, 1).contiguous()
+            self._bias_key = key
+        return self._bias
 
     def forward(self, x, mask):
         """x: (nW*B, N, C); mask: (num_windows, N, N) or None."""
         bnw, n, c = x.shape
         nh = self.num_heads
-        qkv = self.qkv(x).reshape(bnw, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.contiguous() for t in qkv)  # (bnw, nh, n, hd)
-        bias = self.relative_position_bias_table[self.relative_position_index]
-        bias = bias.reshape(n, n, nh).permute(2, 0, 1)  # (nh, n, n) f32
-        out = fused_window_attention(q, k, v, bias, mask, scale=self.scale)
+        # q, k, v as (bnw, nh, n, hd) views of the packed linear output; the
+        # kernel reads them in place and writes (bnw, n, nh, hd)
+        q, k, v = self.qkv(x).reshape(bnw, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+        out = fused_window_attention(q, k, v, self.bias(), mask, scale=self.scale)
         return self.proj(out.permute(0, 2, 1, 3).reshape(bnw, n, c))
 
 

@@ -114,25 +114,23 @@ def load(name: str) -> ctypes.CDLL:
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "roi_pool":
-        fn = lib.roi_pool_forward
-        fn.argtypes = [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P]
-    elif name == "afi_conv3x3":
-        fn = lib.afi_conv3x3
-        fn.argtypes = [P, P, I, P, P, P, F, P, F, P, P, I, I, I, I, I, I, P]
-    elif name == "afi_upsample":
-        fn = lib.afi_subpixel_deconv
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
-    elif name == "layer_norm":
-        fn = lib.layer_norm_forward
-        fn.argtypes = [P, P, P, P, I, I, F, I, I, P]
-    elif name == "window_attention":
-        fn = lib.window_attention_forward
-        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F, I, P]
-    elif name == "window_gather":
-        fn = lib.window_gather_forward
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, P]
-    fn.restype = I
+    sigs = {
+        "roi_pool": {"roi_pool_forward": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P]},
+        "afi_conv3x3": {
+            "afi_conv3x3": [P, P, I, P, P, P, F, P, F, P, P, I, I, I, I, I, I, I, P],
+            "afi_rdb_chain": [P, P, P, P, P, I, F, P, F, I, I, I, I, I, I, I, P]},
+        "afi_upsample": {
+            "afi_subpixel_deconv": [P, P, P, P, I, I, I, I, I, I, I, I, P],
+            "afi_upsample_forward": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]},
+        "layer_norm": {"layer_norm_forward": [P, P, P, P, I, I, F, I, I, P]},
+        "window_attention": {
+            "window_attention_forward": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]},
+        "window_gather": {"window_gather_forward": [P, P, P, P, I, I, I, I, I, P]},
+    }
+    for fname, argtypes in sigs[name].items():
+        fn = getattr(lib, fname)
+        fn.argtypes = argtypes
+        fn.restype = I
 
 
 def check(rc: int, what: str) -> None:

@@ -2,6 +2,8 @@
 """GPU smoke run of the PyTorch/CUDA port (``afigan_tpu_torch``).
 
     python3 chip_smoke.py            # one GPU, no arguments
+    python3 chip_smoke.py --generator-levels   # only the generator's device
+                                     # time per pyramid level
 
 Phases, always all (any failure exits non-zero; nothing falls back to the
 CPU):
@@ -19,7 +21,11 @@ CPU):
               bf16, 67 in fp32). In bfloat16 each of the generator's 19
               launches is also held, on its own inputs, against the float32
               plain conv at one rounding of its output, and every bf16 bound
-              must reject a plain output with a part taken out
+              must reject a plain output with a part taken out. The generator's
+              one-call routes must equal their single launches bit for bit; the
+              attention reads views of a packed qkv tensor, as the Swin block
+              passes them; one generator call per pyramid level runs under the
+              profiler (device time; 19 conv launches and no other kernel)
   3. slice    Mask R-CNN R-50-FPN + AF interpolator at full width (bf16, random
               weights from a seeded torch.Generator) through ``build_model``
               and ``predict`` on random-pixel batches of an 832x1344 canvas;
@@ -33,7 +39,9 @@ CPU):
               BiFPN (7 layers, shared AF interpolator) at full width from the
               flagship YAML, 896x1408 canvas, batch 2, bf16, the same two
               traffics, launch counts asserted per batch (24 window attentions,
-              55 LayerNorms, 28 generator calls, 3 pooler calls)
+              55 LayerNorms, 28 generator calls, 3 pooler calls); one window
+              attention under the profiler must copy no activation between its
+              qkv linear and its projection
   5. slice_centermask  CenterMask (FCOS + SAG mask head) on ResNet-50 + BiFPN
               (6 layers x 160 channels, shared AF interpolator) at full width,
               896x1408 canvas, batch 2, bf16, the same two traffics, each under
@@ -337,19 +345,30 @@ def kernels_generator(results):
                 continue  # the Swin slice runs in bf16; fp32 is timed at the R-50 shapes
             head, rdbs, mid, up, tail = weights[C]
             up_args = (*mid, *up, *tail)
+            # as the module calls the wrappers: the weights laid out ahead
+            # (check_launches below goes through the wrappers' own layout)
+            laid = ag.lay_out_generator(*head, rdbs, *up_args, dt)
             for (h, w), count in levels:
                 x = torch.randn((B, h, w, C), generator=gen).to(dev, dt)
                 tag = f"{dtype_name} {path} C={C} {h}x{w}"
-                chain_k = lambda: ag.fused_generator_chain(x, *head, rdbs, 0.2)  # noqa: E731
+                chain_k = lambda: ag.fused_generator_chain(x, *head, rdbs, 0.2, laid=laid)  # noqa: E731
                 chain_p = lambda: ag.fused_generator_chain_plain(x, *head, rdbs, 0.2)  # noqa: E731
                 r_k, r_p = chain_k(), chain_p()
                 torch.cuda.synchronize()
                 e1 = compare(f"afi_chain {tag}", r_k, r_p, "gen", dtype_name)
-                up_k = lambda: ag.fused_upsample(r_p, x, *up_args)  # noqa: E731
+                # the one-call route launches what the wiring over single
+                # launches does: the same numbers, bit for bit
+                if not torch.equal(r_k, ag._chain(ag.conv3x3, x, *head, rdbs, 0.2)):
+                    raise AssertionError(f"afi_chain {tag}: one call != 16 single launches")
+                up_k = lambda: ag.fused_upsample(r_p, x, *up_args, laid=laid.upsample())  # noqa: E731
                 up_p = lambda: ag.fused_upsample_plain(r_p, x, *up_args)  # noqa: E731
                 u_k, u_p = up_k(), up_p()
                 torch.cuda.synchronize()
                 e2 = compare(f"afi_upsample {tag}", u_k, u_p, "gen", dtype_name)
+                z = ag.subpixel_deconv(ag.conv3x3([r_p], *mid, leaky=True), *up)
+                if not torch.equal(u_k, ag.conv3x3([z], *tail, skip=x)):
+                    raise AssertionError(f"afi_upsample {tag}: one call != 3 single launches")
+                del z
                 if dtype_name == "bfloat16":
                     no_rdb = [[*ws[:4], torch.zeros_like(ws[4])] for ws in rdbs]
                     reject(f"afi_chain plain without its dense blocks {tag}",
@@ -373,11 +392,13 @@ def kernels_generator(results):
                     continue
                 # one dense block at the same inputs: the N_RDB 1 generator's kernel
                 ws = rdbs[0]
-                rdb_k = lambda: ag.fused_rdb(x, ws, 0.2)  # noqa: E731
+                rdb_k = lambda: ag.fused_rdb(x, ws, 0.2, laid=laid.rdbs[0])  # noqa: E731
                 rdb_p = lambda: ag.fused_rdb_plain(x, ws, 0.2)  # noqa: E731
                 o_k, o_p = rdb_k(), rdb_p()
                 torch.cuda.synchronize()
                 e3 = compare(f"afi_rdb {tag}", o_k, o_p, "gen", dtype_name)
+                if not torch.equal(o_k, ag._rdb(ag.conv3x3, x, ws, 0.2)):
+                    raise AssertionError(f"afi_rdb {tag}: one call != 5 single launches")
                 if dtype_name == "bfloat16":
                     reject(f"afi_rdb plain without its last conv {tag}",
                            ag.fused_rdb_plain(x, [*ws[:4], torch.zeros_like(ws[4])], 0.2),
@@ -402,6 +423,129 @@ def kernels_generator(results):
         got = g1(x.to(dev))
         want = g1.cpu()(x)
     compare("AFIGenerator N_RDB 1 float32, card vs CPU", got.cpu(), want, "gen", "float32")
+
+
+PORT_KERNELS = ("afi::", "roi_pool_kernel", "layer_norm_kernel", "window_attention_",
+                "window_gather_kernel")
+
+
+def device_events(fn, expected, record_shapes=False, tries=3):
+    """One call of ``fn`` under torch.profiler: (the profile, its device
+    kernels as [(name, microseconds, count)], the sessions taken, whether the
+    trace is whole). The profiler's device tracing now and then loses records:
+    a session comes back with no device event, or with part of the call's
+    kernels (9 of a generator call's 19 were seen), while the call's results
+    are right. ``fn`` makes ``expected`` launches of the port's kernels, each
+    one device kernel; a trace that holds another number of them is a failed
+    reading, not a result, and the session is taken again, ``tries`` times at
+    most. Where none is whole the callers say that the device time was not
+    measured and keep to the checks that need no trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=record_shapes) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        held = sum(k[2] for k in kernels if any(name in k[0] for name in PORT_KERNELS))
+        if held == expected:
+            return prof, kernels, i + 1, True
+        log(f"  profiler session {i + 1} of {tries}: the trace holds {held} of the call's "
+            f"{expected} launches of the port's kernels")
+    return prof, kernels, tries, False
+
+
+# ATen operators that launch nothing on the device: allocations and views
+ATEN_NO_KERNEL = frozenset((
+    "empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided", "view",
+    "_unsafe_view", "_reshape_alias", "as_strided", "permute", "transpose", "t", "slice",
+    "select", "narrow", "expand", "squeeze", "unsqueeze", "unbind", "split",
+    "split_with_sizes", "alias", "detach", "unflatten", "sym_size", "sym_stride",
+    "sym_numel", "sym_storage_offset"))
+
+
+def aten_launches(fn):
+    """One call of ``fn`` with every ATen operator it dispatches recorded on
+    the host: the names of those that run a kernel or a copy on the device
+    (every operator but an allocation or a view). It needs no device trace,
+    so it holds where the profiler's session came back empty."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            import torch
+
+            name = func.overloadpacket.__name__
+            out = func(*args, **(kwargs or {}))
+            if name in ATEN_NO_KERNEL:
+                return out
+            # reshape, flatten, contiguous, to: a view of an argument's
+            # storage where nothing had to move, else a copy
+            if isinstance(out, torch.Tensor) and not name.endswith("_"):
+                at = out.untyped_storage().data_ptr()
+                if any(isinstance(a, torch.Tensor) and a.untyped_storage().data_ptr() == at
+                       for a in args):
+                    return out
+            seen.append(name)
+            return out
+
+    with Record():
+        fn()
+    return seen
+
+
+def generator_levels(strict=True):
+    """bf16: one call of the ``AFIGenerator`` module (its weights laid out
+    ahead) per pyramid level of each path, under the profiler: the device
+    time of its kernels, and by events the time of a call. With ``strict``
+    the call must be the 19 launches of the conv kernel and nothing else, no
+    layout kernel between them: by the wrappers' launch counts and the ATen
+    operators the call dispatches, and by the device trace wherever the
+    profiler gave one."""
+    import torch
+
+    from afigan_tpu_torch.models.afi import AFIGenerator
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    for C in (256, 160):
+        g = AFIGenerator(C, 3, 32, device=dev)
+        g.init_weights(torch.Generator().manual_seed(1))
+        for path, (c, levels) in GEN_LEVELS.items():
+            if c != C:
+                continue
+            for (h, w), _ in levels:
+                x = torch.randn((2, h, w, C), generator=gen).to(dev, torch.bfloat16)
+                with torch.inference_mode():
+                    call = lambda: g(x)  # noqa: E731
+                    call()
+                    reset_launches()
+                    aten = aten_launches(call)
+                    counts = {k: v for k, v in LAUNCHES.items() if v}
+                    _, kernels, _, whole = device_events(call, 19)
+                    ms = median_ms(call)
+                conv = [k for k in kernels if "afi::conv3x3_bf16_" in k[0]]  # mma.sync and wgmma
+                other = [k for k in kernels if k not in conv]
+                traced = (f"device {sum(k[1] for k in kernels) / 1000:.3f} ms "
+                          f"({sum(k[2] for k in conv)} conv launches "
+                          f"{sum(k[1] for k in conv) / 1000:.3f} ms, {sum(k[2] for k in other)} "
+                          f"other kernels {sum(k[1] for k in other) / 1000:.3f} ms)"
+                          if whole else "device time not measured (no whole device trace)")
+                log(f"  generator level {path} C={C} {h}x{w}: {traced}; wrappers' launches "
+                    f"{counts}, {len(aten)} ATen kernels; a call by events {ms:.3f} ms")
+                # a trace that lost records still must show no other kernel
+                if strict and (counts != {"afi_chain": 16, "afi_upsample": 3} or aten or other):
+                    raise AssertionError(
+                        f"generator call at {h}x{w}: expected 16 + 3 conv launches and no other "
+                        f"kernel, got {counts}, ATen kernels {aten}, device trace {kernels}")
 
 
 def kernels_roi_pool(results):
@@ -538,8 +682,10 @@ def kernels_window_attention(results):
         elt = ELT[dtype_name]
         for nw, nh, n, mask, count in cases:
             bnw = B * nw
-            q, k, v = (torch.randn((bnw, nh, n, D), generator=gen).to(dev, dt)
-                       for _ in range(3))
+            # q, k, v as the Swin block passes them: views of the packed output
+            # of its qkv linear, (bnw, n, 3, nh, D)
+            packed = torch.randn((bnw, n, 3, nh, D), generator=gen).to(dev, dt)
+            q, k, v = packed.permute(2, 0, 3, 1, 4)
             bias = torch.randn((nh, n, n), generator=gen).to(dev)
             m = None if mask is None else torch.as_tensor(mask, device=dev)
             scale = D ** -0.5
@@ -550,10 +696,17 @@ def kernels_window_attention(results):
             tag = (f"{dtype_name} ({bnw}, {nh}, {n}, {D}) "
                    f"{'no mask' if m is None else 'mask'}")
             e = compare(f"window_attention {tag}", o_k, o_p, "attn", dtype_name)
+            if not o_k.permute(0, 2, 1, 3).is_contiguous():
+                raise AssertionError("window_attention: the output is not laid out "
+                                     "(bnw, n, nh, D) for the projection")
             if dtype_name == "bfloat16":
                 reject(f"window_attention plain without the bias {tag}",
                        fused_window_attention_plain(q, k, v, torch.zeros_like(bias), m,
                                                     scale=scale), o_p, "attn", dtype_name)
+                if m is not None:
+                    reject(f"window_attention plain without the mask {tag}",
+                           fused_window_attention_plain(q, k, v, bias, None, scale=scale),
+                           o_p, "attn", dtype_name)
             if not count:
                 continue
             # the yardstick: one library call with bias (+ mask) as its attn_mask
@@ -562,7 +715,8 @@ def kernels_window_attention(results):
                 am = (bias[None, None] + m[None, :, None]).expand(B, nw, nh, n, n)
                 am = am.reshape(bnw, nh, n, n)
             am = am.to(dt).contiguous()
-            fl = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,  # noqa: E731
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            fl = lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=am,  # noqa: E731
                                                         scale=scale)
             tk, tp, tl = median_ms(fk), median_ms(fp), median_ms(fl)
             log(f"  window_attention {tag} x{count}: kernel {tk:.3f} ms plain {tp:.3f} ms "
@@ -572,7 +726,7 @@ def kernels_window_attention(results):
             ops = bnw * nh * (4 * n * n * D + 6 * n * n)
             tally(results, "window_attention", "swin", dtype_name).add(
                 tk, tp, nbytes, ops, dtype_name, e, count, tl)
-            del am
+            del am, qc, kc, vc
 
 
 def kernels_window_gather(results):
@@ -657,6 +811,7 @@ def phase_kernels(results):
                  kernels_window_attention, kernels_window_gather):
         part(results)
         torch.cuda.empty_cache()
+    generator_levels()
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -808,7 +963,49 @@ def phase_slice(results, n_batches=10):
 def phase_slice_swin(results, n_batches=10):
     from afigan_tpu_torch.config import swin_path_cfg
 
-    run_slice(results, "swin", swin_path_cfg, SWIN_CANVAS, SWIN_PER_BATCH, n_batches)
+    model, _ = run_slice(results, "swin", swin_path_cfg, SWIN_CANVAS, SWIN_PER_BATCH, n_batches)
+    check_attention_launch_path(model.backbone.bottom_up.layers[2].blocks[1].attn)
+
+
+def check_attention_launch_path(attn):
+    """One shifted-window attention of the model's third stage (80 windows, 24
+    heads) under the profiler with shapes recorded: between the qkv linear and
+    the projection nothing copies an activation. The only copies allowed are
+    the linears' own casts of their float32 parameters."""
+    import torch
+
+    from afigan_tpu_torch.models.swin import _sw_attn_mask
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    dev = torch.device("cuda")
+    c = attn.qkv.in_features
+    x = torch.randn((80, 144, c), generator=torch.Generator().manual_seed(7)).to(
+        dev, torch.bfloat16)
+    mask = torch.as_tensor(_sw_attn_mask(60, 96, 12, 6), device=dev)
+    with torch.inference_mode():
+        attn(x, mask)
+        reset_launches()
+        prof, kernels, sessions, whole = device_events(lambda: attn(x, mask), 1,
+                                                       record_shapes=True)
+    launched = LAUNCHES["window_attention"]
+    params = [list(p.shape) for p in (attn.qkv.weight, attn.qkv.bias, attn.proj.weight,
+                                      attn.proj.bias)]
+    copies = [(e.name, e.input_shapes[0]) for e in prof.events()
+              if e.name in ("aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy")
+              and e.input_shapes and e.input_shapes[0]]
+    moved = [cp for cp in copies if cp[1] not in params]
+    ours = [k for k in kernels if "window_attention_bf16_kernel" in k[0]]
+    log(f"  attention launch path ({x.shape[0]} windows, {attn.num_heads} heads): "
+        f"{sum(k[2] for k in kernels)} device kernels, {len(copies)} copies, all of parameters "
+        f"(the linears' casts); attention kernel {sum(k[1] for k in ours) / 1000:.3f} ms")
+    for name, us, n in kernels:
+        log(f"    {us / 1000:8.3f} ms x{n} {name[:100]}")
+    if not whole:
+        log("    device times not measured (no whole device trace); the copies are read from "
+            "the host's operator events, the launch from the wrapper's count")
+    if moved or launched != sessions:
+        raise AssertionError(f"attention launch path: activation copies {moved}, {launched} "
+                             f"attention launches in {sessions} calls")
 
 
 def centermask_cfg(pooler_impl):
@@ -850,10 +1047,14 @@ def phase_slice_centermask(results, n_batches=10):
             return float((a - b).pow(2).mean().sqrt())
 
         head = model.roi_heads.mask_head
-        logits = {impl: head(flat(x)).float() for impl, x in pooled.items()}  # every class
-        # the head's own bf16 rounding on one pool: the same weights and the
-        # same rounded pool through a float32 copy of the head
-        noise = rms(logits["pallas"], copy.deepcopy(head).float()(flat(pooled["pallas"]).float()))
+        # every class. The pools are compared through a float32 copy of the
+        # head (the same weights, the same rounded pools), so that what
+        # separates two pools is the pools and not the head's own bf16
+        # rounding; that rounding, the bf16 head against the copy on one
+        # pool, is the bound
+        head32 = copy.deepcopy(head).float()
+        logits = {impl: head32(flat(x).float()) for impl, x in pooled.items()}
+        noise = rms(head(flat(pooled["pallas"])).float(), logits["pallas"])
         torch.cuda.synchronize()
         log(f"  pallas vs windowed: {int(dets.valid.sum())} valid detections, "
             f"{over.sum(dim=1).tolist()} per image overflow the 48-pixel window "
@@ -885,34 +1086,42 @@ def phase_slice_centermask(results, n_batches=10):
 
 def profile_batch(model, batch):
     """One batch under torch.profiler (device kernel time by name and the
-    device's busy share of the wall time), then one batch split by layer on
+    device's busy share of the wall time; the trace is held against the
+    wrappers' launch counts, which it leaves changed), then one batch split by layer on
     the host clock, with a synchronize at every layer boundary."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from afigan_tpu_torch.engine.inference import predict
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        predict(model, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     # device-side events only: kernels and copies, not the record_function
     # ranges' GPU spans (first to last kernel, idle gaps included)
     ranges = ("backbone", "afi_generator", "rpn", "roi_heads", "fcos_head", "fcos_decode",
               "mask_pool", "mask_head")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.key not in ranges]
+    for session in range(3):  # a trace that lost records is taken again, as in device_events
+        reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            predict(model, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.key not in ranges]
+        held = sum(e.count for e in kernels if any(name in e.key for name in PORT_KERNELS))
+        if held == sum(LAUNCHES.values()):
+            break
+        log(f"  profile: session {session + 1} of 3 holds {held} of the batch's "
+            f"{sum(LAUNCHES.values())} launches of the port's kernels"
+            + ("; device busy below is short of the truth" if session == 2 else ""))
     busy = sum(e.self_device_time_total for e in kernels) / 1000.0
     log(f"  profile: wall {1000 * wall:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / (1000 * wall):.1f} % of wall)")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    ours = ("afi::", "roi_pool_kernel", "layer_norm_kernel", "window_attention_kernel",
-            "window_gather_kernel")
     for i, e in enumerate(top):  # the 14 largest, and every kernel of the port
-        if i < 14 or any(name in e.key for name in ours):
+        if i < 14 or any(name in e.key for name in PORT_KERNELS):
             log(f"  kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} "
                 f"{e.key[:90]}")
 
@@ -1155,6 +1364,13 @@ def main():
         for line in txt.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+
+    if "--generator-levels" in sys.argv[1:]:
+        # only the per-level device time of a generator call (also runs on a
+        # tree whose module re-lays its weights on every call)
+        generator_levels(strict=False)
+        log(smi)
+        return 0
 
     results = {k: {} for k in KERNELS}
     for name, phase in (("kernels", phase_kernels), ("slice", phase_slice),

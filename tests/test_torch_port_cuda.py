@@ -71,6 +71,8 @@ def test_chain_kernel_matches_plain(dev, c, g, hw, dtype):
     got = ag.fused_generator_chain(x, *head, rdbs)
     assert LAUNCHES["afi_chain"] == n0 + 16
     _close(got, ag.fused_generator_chain_plain(x, *head, rdbs), dtype)
+    # the one call launches what the wiring over single launches does
+    assert torch.equal(got, ag._chain(ag.conv3x3, x, *head, rdbs, 0.2))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -83,8 +85,12 @@ def test_upsample_kernel_matches_plain(dev, c, hw, dtype):
          _t(rng, c, c, 6, 6, scale=0.03), _t(rng, c, scale=0.01),
          _t(rng, c, c, 3, 3, scale=0.05), _t(rng, c, scale=0.01)]
     w = [t.to(dev) for t in w]
+    n0 = LAUNCHES["afi_upsample"]
     got = ag.fused_upsample(r, x, *w)
+    assert LAUNCHES["afi_upsample"] == n0 + 3
     _close(got, ag.fused_upsample_plain(r, x, *w), dtype)
+    z = ag.subpixel_deconv(ag.conv3x3([r], w[0], w[1], leaky=True), w[2], w[3])
+    assert torch.equal(got, ag.conv3x3([z], w[4], w[5], skip=x))
 
 
 def _pool_inputs(rng, dev, c, dtype=torch.float32):
@@ -170,6 +176,10 @@ def test_rdb_kernel_matches_plain(dev, dtype):
     got = ag.fused_rdb(x, ws)
     assert LAUNCHES["afi_rdb"] == n0 + 5
     _close(got, ag.fused_rdb_plain(x, ws), dtype)
+    assert torch.equal(got, ag._rdb(ag.conv3x3, x, ws, 0.2))
+    outer = _t(rng, 2, 13, 18, c).to(dev, dtype)
+    folded = ag.fused_rdb(x, ws, 0.2, outer=outer, outer_scale=0.5)
+    _close(folded, ag.fused_rdb_plain(x, ws, 0.2, outer=outer, outer_scale=0.5), dtype)
 
 
 # one bf16 rounding of an O(1..10) output; float32 as the other kernels
@@ -212,6 +222,138 @@ def test_window_attention_kernel_matches_plain(dev, n, nw, dtype):
     got = fused_window_attention(q, k, v, bias, mask, scale=d ** -0.5)
     assert LAUNCHES["window_attention"] == n0 + 1
     _close_to(got, fused_window_attention_plain(q, k, v, bias, mask, scale=d ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,nw,bnw,nh", [(144, 0, 10, 3), (144, 5, 10, 3), (49, 0, 7, 2),
+                                         (49, 7, 7, 2), (144, 3, 1140, 6)])
+def test_window_attention_on_views_of_packed_qkv(dev, n, nw, bnw, nh, dtype):
+    """q, k, v as views of one packed (BNW, N, 3, NH, D) tensor, as the Swin
+    block passes them; the result is a view of a (BNW, N, NH, D) buffer.
+    1140 x 6 is the first Swin stage's grid."""
+    rng = np.random.RandomState(8)
+    d = 32
+    q, k, v = _t(rng, bnw, n, 3, nh, d).to(dev, dtype).permute(2, 0, 3, 1, 4)
+    assert not q.is_contiguous()
+    bias = _t(rng, nh, n, n).to(dev)
+    mask = None
+    if nw:
+        bnw_ok = bnw % nw == 0
+        assert bnw_ok
+        m = np.where(rng.rand(nw, n, n) < 0.3, -100.0, 0.0).astype(np.float32)
+        mask = torch.from_numpy(m).to(dev)
+    got = fused_window_attention(q, k, v, bias, mask, scale=d ** -0.5)
+    assert got.shape == q.shape and got.permute(0, 2, 1, 3).is_contiguous()
+    want = fused_window_attention_plain(q, k, v, bias, mask, scale=d ** -0.5)
+    _close_to(got, want, dtype)
+    # the same numbers from contiguous copies
+    again = fused_window_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias, mask,
+                                   scale=d ** -0.5)
+    assert torch.equal(got, again)
+
+
+def test_window_attention_raises_on_views_it_cannot_read(dev):
+    q = torch.zeros(4, 2, 16, 64, device=dev, dtype=torch.bfloat16)
+    bias = torch.zeros(2, 16, 16, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_window_attention(q[..., ::2], q[..., ::2], q[..., ::2], bias, scale=1.0)
+    odd = torch.zeros(4 * 2 * 16 * 32 + 1, device=dev, dtype=torch.bfloat16)[1:]
+    odd = odd.view(4, 2, 16, 32)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fused_window_attention(odd, odd, odd, bias, scale=1.0)
+
+
+# one bf16 launch against the float32 plain conv on the same bf16 values: the
+# kernel accumulates in float32 and rounds once (chip_smoke.py's STAGE bound)
+def _one_rounding(k, ref):
+    err = (k.float() - ref).abs()
+    return float((err / (2.0 ** -8 * ref.abs() + 1e-4 * ref.abs().max())).max())
+
+
+# the conv kernel's four tilings: (H, W) small or not against one wave of
+# blocks, cout wide (C) or a growth conv's (32)
+HWS = [(7, 11), (26, 42), (104, 168)]
+# (H, W), C, sources, cout (None: C), tiling (-1: the launcher's own pick):
+# every shape on the launcher's pick, then each entry of its table forced on a
+# wide conv over 5 sources and on a growth conv with the ragged loader
+CONV_CASES = [(hw, c, ns, co, -1) for hw in HWS for c in (100, 160, 256)
+              for ns, co in [(1, None), (3, 32), (5, None), (2, 32)]]
+CONV_CASES += [(hw, c, ns, co, t) for t in range(5) for hw in HWS
+               for c, ns, co in [(160, 5, None), (100, 3, 32)]]
+# the warpgroup-MMA kernel (16x16 pixels x 128 channels a block): wide convs
+CONV_CASES += [(hw, c, ns, None, 5) for hw in HWS[1:] for c, ns in [(160, 5), (256, 1)]]
+
+
+@pytest.mark.parametrize("hw,c,n_src,cout,tiling", CONV_CASES)
+def test_conv_kernel_tilings_one_rounding(dev, monkeypatch, hw, c, n_src, cout, tiling):
+    """Every epilogue term, 1-5 sources, on the launcher's own tile choice and
+    on each entry of its table; C = 100 takes the element-by-element loader
+    (its 100 + 32i concat is off 16 bytes)."""
+    monkeypatch.setattr(ag, "TILING", tiling)
+    rng = np.random.RandomState(10)
+    cout = cout or c
+    bt = 1 if hw[0] > 100 else 2
+    chans = [c] + [32] * (n_src - 1)
+    cin = sum(chans)
+    srcs = [_t(rng, bt, *hw, ci).to(dev, torch.bfloat16) for ci in chans]
+    w = _t(rng, cout, cin, 3, 3, scale=(2.0 / (9 * cin)) ** 0.5).to(dev)
+    bias = _t(rng, cout, scale=0.1).to(dev)
+    r1, r2 = (_t(rng, bt, *hw, cout).to(dev, torch.bfloat16) for _ in range(2))
+    even = hw[0] % 2 == 0 and hw[1] % 2 == 0
+    skip = _t(rng, bt, hw[0] // 2, hw[1] // 2, cout).to(dev, torch.bfloat16) if even else None
+    kw = dict(leaky=True, res1=r1, s1=0.2, res2=r2, s2=0.5, skip=skip)
+    got = ag.conv3x3(srcs, w, bias, **kw)
+
+    def f32(t):
+        return None if t is None else t.to(torch.bfloat16).float()
+
+    ref = ag.conv3x3_plain([f32(s) for s in srcs], f32(w), f32(bias), leaky=True,
+                           res1=f32(r1), s1=0.2, res2=f32(r2), s2=0.5, skip=f32(skip))
+    assert _one_rounding(got, ref) <= 1.0
+    # the pre-laid weights give the same launch
+    laid = ag.lay_out_conv(w, bias, torch.bfloat16)
+    assert torch.equal(got, ag.conv3x3(srcs, w, bias, laid=laid, **kw))
+
+
+@pytest.mark.parametrize("hw,c,tiling", [(hw, c, -1) for hw in HWS[:2] + [(52, 84)]
+                                         for c in (100, 160, 256)]
+                         + [((26, 42), 160, t) for t in range(6)])
+def test_deconv_kernel_tilings_one_rounding(dev, monkeypatch, hw, c, tiling):
+    """The 4-phase mode on the launcher's tile choices and on each entry of
+    its table, pairs stored over channels."""
+    monkeypatch.setattr(ag, "TILING", tiling)
+    rng = np.random.RandomState(11)
+    x = _t(rng, 2, *hw, c).to(dev, torch.bfloat16)
+    w = _t(rng, c, c, 6, 6, scale=(2.0 / (9 * c)) ** 0.5).to(dev)
+    bias = _t(rng, c, scale=0.1).to(dev)
+    got = ag.subpixel_deconv(x, w, bias)
+    ref = ag.subpixel_deconv_plain(x.float(), w.to(torch.bfloat16).float(),
+                                   bias.to(torch.bfloat16).float())
+    assert _one_rounding(got, ref) <= 1.0
+    laid = ag.lay_out_deconv(w, bias, torch.bfloat16)
+    assert torch.equal(got, ag.subpixel_deconv(x, w, bias, laid=laid))
+
+
+def test_generator_module_keeps_its_layout_on_the_card(dev):
+    """The module lays its weights out once per (device, dtype), and again
+    after its weights change; its output equals the wrappers' own layout."""
+    from afigan_tpu_torch.models.afi import AFIGenerator
+
+    gen = AFIGenerator(64, 3, 16, device=dev)
+    gen.init_weights(torch.Generator().manual_seed(0))
+    x = _t(np.random.RandomState(12), 2, 13, 18, 64).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        y0 = gen(x)
+        laid = gen._laid
+        assert gen(x) is not None and gen._laid is laid
+        head_w, head_b, rdbs, *up = gen._weights()
+        r = ag.fused_generator_chain(x, head_w, head_b, rdbs, 0.2)
+        assert torch.equal(y0, ag.fused_upsample(r, x, *up))
+    with torch.no_grad():
+        gen.Generators[0][0][0].weight.mul_(2.0)
+    with torch.inference_mode():
+        assert gen(x) is not None and gen._laid is not laid
+        assert not torch.equal(gen(x), y0)
 
 
 def test_wrappers_raise_on_mixed_devices(dev):
