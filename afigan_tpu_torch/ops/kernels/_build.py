@@ -31,6 +31,7 @@ SOURCES = {
     "layer_norm": ("layer_norm.cu",),
     "window_attention": ("window_attention.cu",),
     "window_gather": ("window_gather.cu",),
+    "nms": ("nms.cu",),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,11 +40,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 PTXAS_LOG: Dict[str, str] = {}
 
-# Launches of the hand-written kernels, by the JAX kernel each replaces.
-# A wrapper adds one where it launches a kernel, and nowhere else.
+# Launches of the hand-written kernels, by the JAX function each replaces.
+# A wrapper adds one where it launches a kernel, and nowhere else; "nms"
+# counts calls of its C entry (a mask and a reduce launch each).
 LAUNCHES: Dict[str, int] = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0,
                             "roi_pool": 0, "layer_norm": 0, "window_attention": 0,
-                            "window_gather": 0}
+                            "window_gather": 0, "nms": 0}
 
 
 def reset_launches() -> None:
@@ -115,7 +117,7 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        "roi_pool": {"roi_pool_forward": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P]},
+        "roi_pool": {"roi_pool_forward": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, I, P]},
         "afi_conv3x3": {
             "afi_conv3x3": [P, P, I, P, P, P, F, P, F, P, P, I, I, I, I, I, I, I, P],
             "afi_rdb_chain": [P, P, P, P, P, I, F, P, F, I, I, I, I, I, I, I, P]},
@@ -126,6 +128,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         "window_attention": {
             "window_attention_forward": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]},
         "window_gather": {"window_gather_forward": [P, P, P, P, I, I, I, I, I, P]},
+        "nms": {"nms_forward": [P, P, P, F, I, I, I, P, P, P]},
     }
     for fname, argtypes in sigs[name].items():
         fn = getattr(lib, fname)

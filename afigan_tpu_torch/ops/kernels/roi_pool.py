@@ -3,7 +3,9 @@
 ``afigan_tpu/ops/roi_align.py::multilevel_roi_align_pallas``).
 
 On a CUDA tensor: ``csrc/roi_pool.cu``, which samples the level maps in
-place (no window, no pyramid concat, no overflow pass). On a CPU tensor:
+place (no window, no pyramid concat, no overflow pass): a block per ROI and
+group of output rows, 16-byte loads and stores over channel vectors where C
+allows. On a CPU tensor:
 the gather formulation of ``afigan_tpu/ops/roi_align.py::
 multilevel_roi_align`` / ``_bilinear_gather``, batched over images.
 """
@@ -17,6 +19,11 @@ import torch
 
 from . import _build
 from ._build import LAUNCHES
+
+# (output rows a block, threads a block) of the kernel; 0 lets
+# ``csrc/roi_pool.cu::roi_pool_forward`` pick them from the shapes. Tests
+# and ``tools/kernel_sweep.py`` set them to time or check another split.
+SPLIT = (0, 0)
 
 
 def _sample_coords(boxes, scales, p: int, s: int, aligned: bool):
@@ -139,7 +146,7 @@ def roi_pool(features: Sequence[torch.Tensor], boxes, levels,
         (ctypes.c_int * nl)(*[int(f.shape[2]) for f in feats]),
         (ctypes.c_float * nl)(*[1.0 / s for s in strides]),
         nl, bx.data_ptr(), lv.data_ptr(), out.data_ptr(),
-        b * r, r, c, p, sampling_ratio, int(bool(aligned)), dcode,
+        b * r, r, c, p, sampling_ratio, int(bool(aligned)), dcode, *SPLIT,
         _build.stream_ptr())
     _build.check(rc, "roi_pool_forward")
     LAUNCHES["roi_pool"] += 1

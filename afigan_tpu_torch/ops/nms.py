@@ -1,15 +1,21 @@
-"""Fixed-shape non-maximum suppression, plain PyTorch (counterpart of
-``afigan_tpu/ops/nms.py``; XLA code in the JAX package, so no kernel is
-owed here — a CUDA NMS is queued in ROADMAP).
+"""Fixed-shape non-maximum suppression (counterpart of
+``afigan_tpu/ops/nms.py``, which is XLA code in the JAX package).
 
-Same contract and the same blocked algorithm, so keep masks are equal
-entry for entry: scores sorted descending with a STABLE sort (lowest index
-first among ties; invalid entries last), then blocks of ``block_size``:
-inside a block suppression is resolved by the self-suppression fixpoint,
-and a resolved block suppresses every later box in one vectorized step.
+Scores are sorted descending with a STABLE sort (lowest index first among
+ties; invalid entries last). Then, by the device of the boxes:
+
+- CPU tensors: the JAX package's blocked algorithm in plain torch, so keep
+  masks are equal entry for entry. Blocks of ``block_size``: inside a block
+  suppression is resolved by the self-suppression fixpoint, and a resolved
+  block suppresses every later box in one vectorized step. The host reads
+  the device once per block and once per fixpoint sweep.
+- CUDA tensors: ``ops/kernels/nms.py`` (``csrc/nms.cu``), greedy NMS in
+  score order, the fixpoint's unique solution, with no host sync. A build or
+  launch failure raises; there is no fallback to the loop.
+
 ``stop_after`` stops once that many boxes are kept; keep decisions have a
-prefix property, so the top ``stop_after`` survivors are exact and the
-tail of the mask is left unresolved, as in JAX.
+prefix property, so the top ``stop_after`` survivors are exact. The tail
+of the mask is left unresolved (the loop, as in JAX) or False (the kernel).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Tuple
 import torch
 
 from .boxes import pairwise_iou
+from .kernels.nms import nms_keep_sorted
 
 _NEG_INF = -1.0e10
 _BLOCK_SIZE = 128
@@ -34,9 +41,21 @@ def nms_keep_mask(boxes, scores, iou_threshold: float, valid=None,
         valid = torch.ones((n,), dtype=torch.bool, device=dev)
     s = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
     order = torch.sort(-s, stable=True).indices
-    boxes_s = boxes[order]
-    keep = valid[order].clone()
+    if dev.type == "cuda":
+        keep = nms_keep_sorted(boxes[None], valid[None], order[None], iou_threshold,
+                               stop_after)[0]
+    else:
+        keep = blocked_keep(boxes[order], valid[order].clone(), iou_threshold,
+                            block_size, stop_after)
+    return order, keep
 
+
+def blocked_keep(boxes_s, keep, iou_threshold: float, block_size: int = _BLOCK_SIZE,
+                 stop_after: int = 0):
+    """The plain blocked loop over sorted boxes (N, 4) and their validity
+    ``keep`` (N,) bool, which it updates in place and returns."""
+    n = boxes_s.shape[0]
+    dev = boxes_s.device
     bs = min(block_size, n)
     nb = -(-n // bs)
     col = torch.arange(bs, device=dev)
@@ -62,7 +81,7 @@ def nms_keep_mask(boxes, scores, iou_threshold: float, valid=None,
         if stop_after > 0:
             fresh = (start + col) >= k * bs
             kept += int((kb & fresh).sum())
-    return order, keep
+    return keep
 
 
 def nms_padded(boxes, scores, iou_threshold: float, max_out: int, valid=None,

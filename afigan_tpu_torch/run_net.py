@@ -58,6 +58,7 @@ def main(args):
     from .config import get_cfg
     from .data import coco
     from .engine.inference import run_inference
+    from .engine.testing import verify_results
     from .models.build import build_model
 
     if not args.eval_only:
@@ -66,6 +67,12 @@ def main(args):
     cfg = get_cfg()
     cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts)
+    if cfg.TEST.AUG.ENABLED:
+        # the JAX CLI runs run_tta_inference here; single-scale AP must not
+        # stand in for it
+        raise NotImplementedError(
+            "TEST.AUG.ENABLED: test-time augmentation is not ported yet "
+            "(ROADMAP queue 1 item 6b, engine/tta.py)")
     coco.register_default_datasets(cfg.DATASETS.ROOT)
     dataset = coco.get_dataset(cfg.DATASETS.TEST[0])
 
@@ -76,6 +83,7 @@ def main(args):
         load_weights(model, cfg.MODEL.WEIGHTS)
     results = run_inference(cfg, model, dataset)
     print(json.dumps(results))
+    verify_results(cfg, results)
     return results
 
 

@@ -1,12 +1,15 @@
-"""Sweep of the bfloat16 conv kernel's tilings on the card.
+"""Sweeps of kernel launch choices on the card.
 
-    python3 -m afigan_tpu_torch.tools.kernel_sweep
+    python3 -m afigan_tpu_torch.tools.kernel_sweep [conv] [roi_pool]
 
-Each tiling of the table in ``csrc/afi_conv_common.cuh::launch_conv3x3`` on
-the generator's conv shapes (head, a growth conv, conv5, the 4-phase
-transposed conv) at every pyramid level of the three paths: device time per
-launch from torch.profiler, beside the launcher's own choice (-1). Prints
-the card's name and power limit; compare only within one call.
+With no argument both run. ``conv``: each tiling of the table in
+``csrc/afi_conv_common.cuh::launch_conv3x3`` on the generator's conv shapes
+(head, a growth conv, conv5, the 4-phase transposed conv) at every pyramid
+level of the three paths, beside the launcher's own choice (-1).
+``roi_pool``: splits of ``csrc/roi_pool.cu`` (output rows and threads a
+block) at the pooler's shapes on the three paths, beside the launcher's
+own choice (0, 0). Device time per launch from torch.profiler. Prints the
+card's name and power limit; compare only within one call.
 """
 
 from __future__ import annotations
@@ -73,13 +76,58 @@ def sweep_conv(tilings=range(-1, 6)):
                       flush=True)
 
 
+def sweep_roi_pool(splits=((0, 0), (1, 128), (1, 256), (2, 256), (4, 256), (7, 256),
+                            (14, 256), (2, 512), (4, 512), (7, 512), (14, 512))):
+    import numpy as np
+
+    from afigan_tpu_torch.ops.kernels import roi_pool as rp
+    from afigan_tpu_torch.ops.roi_align import assign_boxes_to_levels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    # (canvas, strides, channels, P, ROIs per image): the r50 box and mask
+    # pools, the swin box pool, the centermask mask pool
+    cases = [((832, 1344), (4, 8, 16, 32), 256, 7, 1000),
+             ((832, 1344), (4, 8, 16, 32), 256, 14, 100),
+             ((896, 1408), (8, 16, 32, 64), 256, 7, 1000),
+             ((896, 1408), (8, 16, 32), 160, 14, 100)]
+    for dt in (torch.bfloat16, torch.float32):
+        for (h, w), strides, c, p, n in cases:
+            feats = [torch.randn((2, h // s, w // s, c), generator=gen).to(dev, dt)
+                     for s in strides]
+            ctr = torch.rand((2, n, 2), generator=gen) * torch.tensor([w, h])
+            size = torch.exp(torch.rand((2, n, 2), generator=gen) * np.log(600 / 8)) * 8
+            boxes = torch.cat([ctr - size / 2, ctr + size / 2], -1).to(dev)
+            lo = int(np.log2(strides[0]))
+            lv = assign_boxes_to_levels(boxes, lo, lo + len(strides) - 1)
+            ref, row = None, []
+            for split in splits:
+                if split[0] > p:
+                    continue
+                rp.SPLIT = split
+                call = lambda: rp.roi_pool(feats, boxes, lv, strides, p)  # noqa: E731
+                out = call()
+                if ref is None:
+                    ref = out
+                elif not torch.equal(out, ref):
+                    raise AssertionError(f"split {split} changes the pool at C={c} P={p}")
+                row.append(f"{split[0]}x{split[1]}:{1000 * _device_ms(call):.1f}")
+            rp.SPLIT = (0, 0)
+            print(f"roi_pool {str(dt)[6:]} C={c} P={p} N=2x{n} us per launch by rows x threads  "
+                  + "  ".join(row), flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("kernel_sweep: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    sweep_conv()
+    which = argv[1:] or ["conv", "roi_pool"]
+    if "roi_pool" in which:
+        sweep_roi_pool()
+    if "conv" in which:
+        sweep_conv()
     return 0
 
 

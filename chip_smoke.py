@@ -9,7 +9,7 @@ Phases, always all (any failure exits non-zero; nothing falls back to the
 CPU):
   1. build    compile every CUDA kernel from ``afigan_tpu_torch/csrc`` (one nvcc
               per source, in parallel); print the card and its power limit
-  2. kernels  each of the seven kernels against its plain PyTorch version at
+  2. kernels  each of the eight kernels against its plain PyTorch version at
               the shapes of the paths that run it (the generator and the pooler
               at 256 and at 160 channels), float32 with TF32 off and
               bfloat16: error, median CUDA-event time of both and of the one
@@ -25,11 +25,17 @@ CPU):
               one-call routes must equal their single launches bit for bit; the
               attention reads views of a packed qkv tensor, as the Swin block
               passes them; one generator call per pyramid level runs under the
-              profiler (device time; 19 conv launches and no other kernel)
+              profiler (device time; 19 conv launches and no other kernel). The
+              pooler at the R-50, Swin and CenterMask shapes; the NMS kernel equal
+              to the blocked plain loop on the card entry for entry (outputs,
+              orders, keep masks up to the max_out-th kept box) at the RPN,
+              FCOS and detection sizes and the contract's corner cases, and a
+              keep mask with one kept box flipped must fail that check
   3. slice    Mask R-CNN R-50-FPN + AF interpolator at full width (bf16, random
               weights from a seeded torch.Generator) through ``build_model``
               and ``predict`` on random-pixel batches of an 832x1344 canvas;
-              launch counts of every kernel in that run, ms per batch (median
+              launch counts of every kernel in that run (4 NMS calls a batch, each
+              one kernel call and none the plain loop), ms per batch (median
               and range), peak memory, one batch under torch.profiler and split
               by layer; then the same with normalised pixels and no score
               threshold, so that the heads see 100 boxes per image; then one
@@ -39,7 +45,7 @@ CPU):
               BiFPN (7 layers, shared AF interpolator) at full width from the
               flagship YAML, 896x1408 canvas, batch 2, bf16, the same two
               traffics, launch counts asserted per batch (24 window attentions,
-              55 LayerNorms, 28 generator calls, 3 pooler calls); one window
+              55 LayerNorms, 28 generator calls, 3 pooler calls, 4 NMS calls); one window
               attention under the profiler must copy no activation between its
               qkv linear and its projection
   5. slice_centermask  CenterMask (FCOS + SAG mask head) on ResNet-50 + BiFPN
@@ -47,9 +53,15 @@ CPU):
               896x1408 canvas, batch 2, bf16, the same two traffics, each under
               ``TPU.POOLER_IMPL`` ``pallas`` (one ``roi_pool`` launch a batch) and
               ``windowed`` (one ``window_gather`` launch and one ``roi_pool``
-              launch over the overflow slots a batch); 24 generator calls a
-              batch; on one batch the two poolers' features and masks must agree
-  6. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
+              launch over the overflow slots a batch); 24 generator calls and 2
+              NMS calls a batch; on one batch the two poolers' features and masks must agree
+  6. nms_ab   r50 and centermask (main path): every NMS call of one batch
+              under torch.cuda.set_sync_debug_mode("error"), the host syncs
+              from the proposal head to the end of a batch logged by source
+              line; then 10 batches with the NMS kernel against 10 with the
+              blocked plain loop on the card, alternating, medians and layer
+              splits side by side (the plain route is this script's switch)
+  7. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
               and the CPU (plain versions) on the same weights; detections must
               agree at the golden-regression tolerances. The R-50 model under
               both poolers, a narrow Swin model (embed 32, window 4) and a
@@ -62,10 +74,12 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -86,6 +100,8 @@ KERNELS = {
                    "afigan_tpu/ops/pallas/layer_norm.py:49", "swin"),
     "window_gather": ("afigan_tpu_torch/csrc/window_gather.cu",
                       "afigan_tpu/ops/pallas/window_gather.py:44", "centermask_windowed"),
+    "nms": ("afigan_tpu_torch/csrc/nms.cu",
+            "afigan_tpu/ops/nms.py:36::nms_keep_mask (XLA code, not a Pallas kernel)", "r50"),
 }
 
 # max|kernel - plain| <= rel * max|plain| + abs
@@ -426,7 +442,13 @@ def kernels_generator(results):
 
 
 PORT_KERNELS = ("afi::", "roi_pool_kernel", "layer_norm_kernel", "window_attention_",
-                "window_gather_kernel")
+                "window_gather_kernel", "nms_mask_kernel", "nms_reduce_kernel")
+
+
+def device_kernels(counts):
+    """The device kernels that the wrappers' launch counts stand for: one
+    each, but two for a call of the NMS entry (its mask and its reduce)."""
+    return sum(counts.values()) + counts.get("nms", 0)
 
 
 def device_events(fn, expected, record_shapes=False, tries=3):
@@ -802,13 +824,169 @@ def kernels_window_gather(results):
             torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# NMS: the kernel against the blocked plain loop, both on the card
+# ---------------------------------------------------------------------------
+
+class NMSRoute:
+    """Counts, while it is entered, the calls of ``ops/nms.py::nms_keep_mask``
+    and those of its blocked plain loop on CUDA tensors; with ``plain`` it
+    also routes CUDA tensors to that loop instead of ``csrc/nms.cu`` (the
+    A/B switch of this script, not a setting of the package)."""
+
+    def __init__(self, plain=False):
+        self.plain = plain
+        self.calls = self.plain_on_card = 0
+
+    def __enter__(self):
+        from afigan_tpu_torch.ops import nms
+        from afigan_tpu_torch.ops.kernels.nms import nms_keep_sorted_plain
+
+        self._saved = (nms.nms_keep_mask, nms.blocked_keep, nms.nms_keep_sorted)
+        keep_mask, blocked, _ = self._saved
+
+        def counted_keep_mask(*a, **k):
+            self.calls += 1
+            return keep_mask(*a, **k)
+
+        def counted_blocked(boxes_s, keep, *a, **k):
+            self.plain_on_card += boxes_s.is_cuda
+            return blocked(boxes_s, keep, *a, **k)
+
+        nms.nms_keep_mask, nms.blocked_keep = counted_keep_mask, counted_blocked
+        if self.plain:
+            nms.nms_keep_sorted = nms_keep_sorted_plain
+        return self
+
+    def __exit__(self, *exc):
+        from afigan_tpu_torch.ops import nms
+
+        nms.nms_keep_mask, nms.blocked_keep, nms.nms_keep_sorted = self._saved
+
+
+def check_nms(tag, got, want, upto):
+    """NMS outputs equal entry for entry; ``got`` and ``want`` are (the
+    padded outputs..., order, keep mask); the keep masks up to ``upto``."""
+    import torch
+
+    *outs_k, order_k, keep_k = got
+    *outs_p, order_p, keep_p = want
+    for i, (g, w) in enumerate([*zip(outs_k, outs_p), (order_k, order_p)]):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"nms {tag}: output {i} differs from the plain loop")
+    if not torch.equal(keep_k[:upto], keep_p[:upto]):
+        bad = torch.nonzero(keep_k[:upto] != keep_p[:upto]).flatten()[:8].tolist()
+        raise AssertionError(f"nms {tag}: keep masks differ at sorted positions {bad}")
+
+
+def _nms_work(valid_s, keep, n):
+    """(bytes, operations) that one image's keep mask needs on this input:
+    boxes, validity and order read, the keep mask written, the suppression
+    words of every valid row written (from its 64-box tile on) and those of
+    the kept rows read back (their tile's diagonal word and the later tiles
+    up to the last valid box); 20 float32 operations an IoU, one a pair of
+    a valid box and a later box."""
+    import torch
+
+    pos = torch.arange(n, device=valid_s.device)
+    last = int(torch.nonzero(valid_s).max()) + 1 if bool(valid_s.any()) else 0
+    words, tiles = -(-n // 64), -(-last // 64)
+    vrow, krow = pos[valid_s], pos[keep]
+    written = int((words - vrow // 64).sum())
+    read = int(vrow.numel() + (tiles - krow // 64 - 1).clamp(min=0).sum())
+    nbytes = n * (16 + 1 + 8 + 1) + 8 * (written + read)
+    return nbytes, 20 * int((n - 1 - vrow).sum())
+
+
+def kernels_nms(results):
+    """``csrc/nms.cu`` against the blocked loop on the card at the main
+    paths' sizes and the contract's corner cases: ``batched_nms_padded`` /
+    ``nms_padded`` outputs and orders equal entry for entry, keep masks equal
+    everywhere without ``stop_after`` and up to the ``max_out``-th kept box
+    with it; a keep mask with one kept box flipped must fail that check.
+    The keep-mask function timed both ways at the three real sizes."""
+    import torch
+
+    from afigan_tpu_torch.ops import nms
+    from afigan_tpu_torch.ops.kernels.nms import nms_keep_sorted, nms_keep_sorted_plain
+
+    # by file: a ``tests`` package installed elsewhere may shadow the repo's
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_nms_cases", Path(__file__).resolve().parent / "tests" /
+        "torch_port_nms_cases.py")
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    CARD_CASES, nms_case = cases.CARD_CASES, cases.nms_case
+
+    dev = torch.device("cuda")
+    # real size → (path, calls per batch): RPN and detection NMS once per
+    # image on the R-CNN paths, FCOS NMS once per image on CenterMask
+    paths = {"rpn": [("r50", 2), ("swin", 2)], "detection": [("r50", 2), ("swin", 2)],
+             "fcos": [("centermask", 2)]}
+    for case in CARD_CASES:
+        boxes, scores, valid, idxs, thr, max_out = (
+            torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+            for a in nms_case(case))
+
+        def run():
+            return (*nms.batched_nms_padded(boxes, scores, idxs, thr, max_out, valid),
+                    *nms.nms_padded(boxes, scores, thr, max_out, valid),
+                    *nms.nms_keep_mask(boxes, scores, thr, valid),
+                    *nms.nms_keep_mask(boxes, scores, thr, valid, stop_after=max_out))
+
+        with NMSRoute() as route:
+            got = run()
+        with NMSRoute(plain=True) as plain:
+            want = run()
+        torch.cuda.synchronize()
+        if (route.calls, route.plain_on_card, plain.plain_on_card) != (4, 0, 4):
+            raise AssertionError(f"nms {case}: routes ran {route.calls} calls with "
+                                 f"{route.plain_on_card} and {plain.plain_on_card} plain loops")
+        full_k, full_p = got[8:10], want[8:10]
+        check_nms(f"{case} full", (*got[:8], *full_k), (*want[:8], *full_p), len(boxes))
+        where = torch.nonzero(full_p[1]).flatten()
+        upto = len(boxes) if where.numel() < max_out else int(where[max_out - 1]) + 1
+        check_nms(f"{case} stop_after={max_out}", got[10:12], want[10:12], upto)
+        kept = int(full_p[1].sum())
+        if kept:
+            flipped = full_k[1].clone()
+            flipped[int(torch.nonzero(flipped)[0])] = False
+            try:
+                check_nms(f"{case} one kept box flipped", (*got[:8], full_k[0], flipped),
+                          (*want[:8], *full_p), len(boxes))
+            except AssertionError:
+                pass
+            else:
+                raise AssertionError(f"nms {case}: a flipped keep bit passed the check")
+        log(f"  nms {case}: N={len(boxes)} thr={thr} max_out={max_out}, "
+            f"{int(valid.sum())} valid, {kept} kept: kernel == plain loop entry for entry "
+            f"(a flipped keep bit is caught: {bool(kept)})")
+        if case not in paths:
+            continue
+        # the keep-mask function on what batched_nms_padded hands it
+        shifted = boxes + (idxs.to(boxes.dtype) * (boxes.max() + 1.0))[:, None]
+        s = torch.where(valid, scores, torch.full_like(scores, -1e10))
+        order = torch.sort(-s, stable=True).indices
+        b3, v2, o2 = shifted[None], valid[None], order[None]
+        fk = lambda: nms_keep_sorted(b3, v2, o2, thr, max_out)  # noqa: E731
+        fp = lambda: nms_keep_sorted_plain(b3, v2, o2, thr, max_out)  # noqa: E731
+        tk, tp = median_ms(fk), median_ms(fp, iters=5, inner=1)
+        keep = fk()[0]
+        nbytes, ops = _nms_work(valid[order], keep, len(boxes))
+        log(f"  nms {case} keep mask (stop_after={max_out}): kernel {tk:.3f} ms, plain loop "
+            f"{tp:.3f} ms; {nbytes / 1e6:.2f} MB and {ops / 1e6:.1f} M operations needed")
+        for path, count in paths[case]:
+            tally(results, "nms", path, "bfloat16").add(tk, tp, nbytes, ops, "float32", 0.0,
+                                                          count)
+
+
 def phase_kernels(results):
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     for part in (kernels_generator, kernels_roi_pool, kernels_layer_norm,
-                 kernels_window_attention, kernels_window_gather):
+                 kernels_window_attention, kernels_window_gather, kernels_nms):
         part(results)
         torch.cuda.empty_cache()
     generator_levels()
@@ -867,24 +1045,29 @@ def run_batches(name, cfg, batches, per_batch=None):
     canvas = batches[0]["image"].shape[1:3]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    predict(model, batches[0])  # warm-up (cuDNN autotune, kernel load)
-    torch.cuda.synchronize()
-    ms, valid = [], []
-    for batch in batches[1:]:
-        t0 = time.perf_counter()
-        dets, masks = predict(model, batch)
+    with NMSRoute() as route:
+        predict(model, batches[0])  # warm-up (cuDNN autotune, kernel load)
         torch.cuda.synchronize()
-        ms.append(1000 * (time.perf_counter() - t0))
-        fcos = cfg.MODEL.META_ARCHITECTURE in ("FCOS", "CenterMask")
-        check_outputs(dets, masks, 2, cfg.MODEL.FCOS.POST_NMS_TOPK_TEST if fcos
-                      else cfg.TEST.DETECTIONS_PER_IMAGE, 28 if cfg.MODEL.MASK_ON else None)
-        valid.append(int(dets.valid.sum()))
+        ms, valid = [], []
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            dets, masks = predict(model, batch)
+            torch.cuda.synchronize()
+            ms.append(1000 * (time.perf_counter() - t0))
+            fcos = cfg.MODEL.META_ARCHITECTURE in ("FCOS", "CenterMask")
+            check_outputs(dets, masks, 2, cfg.MODEL.FCOS.POST_NMS_TOPK_TEST if fcos
+                          else cfg.TEST.DETECTIONS_PER_IMAGE, 28 if cfg.MODEL.MASK_ON else None)
+            valid.append(int(dets.valid.sum()))
     counts = dict(LAUNCHES)
-    log(f"  {name}: launches in {len(batches)} batches " + json.dumps(counts))
+    log(f"  {name}: launches in {len(batches)} batches " + json.dumps(counts)
+        + f"; {route.calls} NMS calls, {route.plain_on_card} of them by the plain loop")
     for k, n in (per_batch or {}).items():
         if counts[k] != n * len(batches):
             raise AssertionError(f"{name}: {counts[k]} launches of {k} in {len(batches)} "
                                  f"batches, expected {n} per batch")
+    if route.plain_on_card or counts["nms"] != route.calls:
+        raise AssertionError(f"{name}: {route.calls} NMS calls, {counts['nms']} kernel "
+                             f"launches, {route.plain_on_card} plain loops on the card")
     if ms:
         med = float(np.median(ms))
         log(f"  {name}: {med:.1f} ms per batch of 2 (median of {len(ms)}; min {min(ms):.1f}, "
@@ -926,24 +1109,26 @@ def run_slice(results, path, make_cfg, canvas, per_batch, n_batches):
 
 # kernel launches that one batch of each path must make: the generator is 16
 # chain + 3 upsample launches a call (3 calls on the FPN, 28 on the BiFPN),
-# the pooler one launch a call
+# the pooler one launch a call; NMS one call per image for the proposals and
+# one for the detections (FCOS: one in all)
 R50_PER_BATCH = {"afi_chain": 3 * 16, "afi_upsample": 3 * 3, "roi_pool": 2,
-                 "afi_rdb": 0, "layer_norm": 0, "window_attention": 0, "window_gather": 0}
+                 "afi_rdb": 0, "layer_norm": 0, "window_attention": 0, "window_gather": 0,
+                 "nms": 4}
 SWIN_PER_BATCH = {"afi_chain": 28 * 16, "afi_upsample": 28 * 3, "roi_pool": 3,
                   "afi_rdb": 0, "layer_norm": 55, "window_attention": 24,
-                  "window_gather": 0}
+                  "window_gather": 0, "nms": 4}
 # with one dense block: the head conv + 5 dense convs a call, all launches
 # of the conv kernel, counted as afi_rdb
 RDB1_PER_BATCH = {"afi_chain": 0, "afi_upsample": 3 * 3, "roi_pool": 2,
                   "afi_rdb": 3 * 6, "layer_norm": 0, "window_attention": 0,
-                  "window_gather": 0}
+                  "window_gather": 0, "nms": 4}
 # CenterMask: 6 BiFPN layers x 4 generator calls; one mask pool a batch. Under
 # ``windowed`` the pool is one window_gather launch (the batch's ROIs in one)
 # and one roi_pool launch over the 64 overflow slots per image, which runs
 # whether or not a ROI overflows (fixed shapes, no device synchronisation)
 CENTERMASK_PER_BATCH = {"afi_chain": 24 * 16, "afi_upsample": 24 * 3, "roi_pool": 1,
                         "afi_rdb": 0, "layer_norm": 0, "window_attention": 0,
-                        "window_gather": 0}
+                        "window_gather": 0, "nms": 2}
 CENTERMASK_WINDOWED_PER_BATCH = dict(CENTERMASK_PER_BATCH, window_gather=1)
 
 
@@ -1084,6 +1269,147 @@ def phase_slice_centermask(results, n_batches=10):
             log(f"  mask pool of 2 x 100 ROIs under {impl}: {t:.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# NMS on the main paths: host syncs, and the kernel against the plain loop
+# ---------------------------------------------------------------------------
+
+def nms_syncs(name, model, batch, head):
+    """One batch with every NMS call of the model under
+    ``torch.cuda.set_sync_debug_mode("error")``: none may make the host wait
+    on the card. Then one batch with the stretch from the proposal (RPN or
+    FCOS) head's output to the end of the batch under "warn": every sync
+    there, by the port's source line that made it, is logged (not hidden)."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    from afigan_tpu_torch.engine.inference import predict
+    from afigan_tpu_torch.models import box_head, fcos, rpn
+
+    mods = [m for m in (rpn, box_head, fcos) if hasattr(m, "batched_nms_padded")]
+    saved = {m: m.batched_nms_padded for m in mods}
+    calls = [0]
+    prev = torch.cuda.get_sync_debug_mode()
+
+    def strict(fn):
+        def call(*a, **k):
+            calls[0] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return call
+
+    for m in mods:
+        m.batched_nms_padded = strict(saved[m])
+    try:
+        predict(model, batch)
+        torch.cuda.synchronize()
+    finally:
+        for m in mods:
+            m.batched_nms_padded = saved[m]
+    log(f"  {name}: {calls[0]} NMS calls of one batch under sync debug mode \"error\": "
+        "none synchronised with the host")
+
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1] if "afigan_tpu_torch" in f.filename]
+        at = ours[-1] if ours else None
+        sites[f"{at.filename.split('afigan_tpu_torch')[-1].lstrip('/')}:{at.lineno} "
+              f"{at.line}" if at else f"{filename}:{lineno}"] += 1
+
+    def start(*_):
+        torch.cuda.set_sync_debug_mode("warn")
+
+    hook = head.register_forward_hook(start)
+    show = warnings.showwarning
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            # the capture must see a sync it is shown: a read of a device value
+            start()
+            control = torch.ones(1, device="cuda").item()
+            torch.cuda.set_sync_debug_mode(prev)
+            seen = sum(sites.values())
+            sites.clear()
+            predict(model, batch)
+        torch.cuda.synchronize()
+    finally:
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode(prev)
+        hook.remove()
+    # a measurement, not a gate (the gate is the "error" mode above): a
+    # capture that misses the control's sync says so instead of a count
+    count = sum(sites.values()) if control == 1.0 and seen == 1 else "not measured"
+    log(f"  {name}: host syncs from the proposal head's output to the end of a batch "
+        f"(the capture saw {seen} of the control's one .item()): {count}"
+        + "".join(f"\n    {n}x afigan_tpu_torch/{where}" for where, n in sites.most_common()))
+
+
+def nms_ab(name, make_cfg, canvas, per_batch, n_batches=10):
+    """The kernel and the plain loop on one model, one batch after the other
+    in alternating order (kernel first on even batches), ``n_batches`` each:
+    medians side by side, then one layer split each."""
+    import torch
+
+    from afigan_tpu_torch.engine.inference import predict
+    from afigan_tpu_torch.models import build_model
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    rng = np.random.RandomState(3)
+    batches = [random_batch(rng, 2, canvas, SIZES) for _ in range(n_batches + 1)]
+    model = build_model(make_cfg(), device="cuda", generator=torch.Generator().manual_seed(0))
+    pg = model.proposal_generator
+    head = pg.rpn_head if hasattr(pg, "rpn_head") else pg.fcos_head
+    nms_syncs(name, model, batches[0], head)
+    ms = {"kernel": [], "plain": []}
+    for plain in (False, True):  # warm-up both
+        with NMSRoute(plain):
+            predict(model, batches[0])
+    torch.cuda.synchronize()
+    for i, batch in enumerate(batches[1:]):
+        for route in (("kernel", "plain") if i % 2 == 0 else ("plain", "kernel")):
+            reset_launches()
+            with NMSRoute(plain=route == "plain") as r:
+                t0 = time.perf_counter()
+                predict(model, batch)
+                torch.cuda.synchronize()
+                ms[route].append(1000 * (time.perf_counter() - t0))
+            want = (0, per_batch) if route == "plain" else (per_batch, 0)
+            if (LAUNCHES["nms"], r.plain_on_card) != want or r.calls != per_batch:
+                raise AssertionError(f"{name} {route}: {LAUNCHES['nms']} kernel launches, "
+                                     f"{r.plain_on_card} plain loops in {r.calls} NMS calls")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"  {name} A/B, {n_batches} batches of 2 each, alternating: kernel NMS "
+        f"{med['kernel']:.1f} ms per batch (min {min(ms['kernel']):.1f}, max "
+        f"{max(ms['kernel']):.1f}), plain NMS {med['plain']:.1f} ms (min {min(ms['plain']):.1f}, "
+        f"max {max(ms['plain']):.1f}); {2000 / med['kernel']:.3f} against "
+        f"{2000 / med['plain']:.3f} images/s; the kernel faster in "
+        f"{sum(k < p for k, p in zip(ms['kernel'], ms['plain']))} of {n_batches} pairs")
+    split = split_rcnn if hasattr(model.roi_heads, "box_predictor") else split_centermask
+    for route in ("kernel", "plain"):
+        log(f"  {name} layer split, {route} NMS:")
+        with NMSRoute(plain=route == "plain"):
+            split(model, batches[-1])
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_nms_ab(results):
+    from afigan_tpu_torch.config import main_path_cfg
+
+    nms_ab("r50", main_path_cfg, R50_CANVAS, R50_PER_BATCH["nms"])
+    nms_ab("centermask", lambda: centermask_cfg("pallas"), SWIN_CANVAS,
+           CENTERMASK_PER_BATCH["nms"])
+
+
 def profile_batch(model, batch):
     """One batch under torch.profiler (device kernel time by name and the
     device's busy share of the wall time; the trace is held against the
@@ -1111,10 +1437,10 @@ def profile_batch(model, batch):
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.key not in ranges]
         held = sum(e.count for e in kernels if any(name in e.key for name in PORT_KERNELS))
-        if held == sum(LAUNCHES.values()):
+        if held == device_kernels(LAUNCHES):
             break
         log(f"  profile: session {session + 1} of 3 holds {held} of the batch's "
-            f"{sum(LAUNCHES.values())} launches of the port's kernels"
+            f"{device_kernels(LAUNCHES)} launches of the port's kernels"
             + ("; device busy below is short of the truth" if session == 2 else ""))
     busy = sum(e.self_device_time_total for e in kernels) / 1000.0
     log(f"  profile: wall {1000 * wall:.1f} ms, device busy {busy:.1f} ms "
@@ -1328,18 +1654,19 @@ def phase_card_vs_cpu(results):
             if not launched.get(k):
                 raise AssertionError(f"the {name} model did not launch {k} on the card")
 
-    card_vs_cpu("r50", main_path_cfg(), (320, 320), (288, 320))
+    need(card_vs_cpu("r50", main_path_cfg(), (320, 320), (288, 320)), "R-50",
+         ("roi_pool", "afi_chain", "afi_upsample", "nms"))
     # the same model through the windowed pooler: window_gather at C=256, with
     # a box head (P=7, 64 proposals) and a mask head (P=14) behind it
     cfg = main_path_cfg()
     cfg.TPU.POOLER_IMPL = "windowed"
     need(card_vs_cpu("r50 windowed", cfg, (320, 320), (288, 320)), "windowed R-50",
-         ("window_gather", "roi_pool", "afi_chain", "afi_upsample"))
+         ("window_gather", "roi_pool", "afi_chain", "afi_upsample", "nms"))
     need(card_vs_cpu("narrow swin", narrow_swin_cfg(), (128, 256), (120, 250)), "narrow Swin",
-         ("layer_norm", "window_attention", "afi_chain", "afi_upsample", "roi_pool"))
+         ("layer_norm", "window_attention", "afi_chain", "afi_upsample", "roi_pool", "nms"))
     need(card_vs_cpu("narrow centermask windowed", narrow_centermask_cfg(), (128, 256),
                      (120, 250)), "narrow CenterMask",
-         ("window_gather", "roi_pool", "afi_chain", "afi_upsample"))
+         ("window_gather", "roi_pool", "afi_chain", "afi_upsample", "nms"))
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -1376,7 +1703,7 @@ def main():
     for name, phase in (("kernels", phase_kernels), ("slice", phase_slice),
                         ("slice_swin", phase_slice_swin),
                         ("slice_centermask", phase_slice_centermask),
-                        ("card_vs_cpu", phase_card_vs_cpu)):
+                        ("nms_ab", phase_nms_ab), ("card_vs_cpu", phase_card_vs_cpu)):
         t0 = time.perf_counter()
         log(f"== phase {name}")
         phase(results)

@@ -14,15 +14,26 @@ window extractor is a copy: exact equality, at the CenterMask mask-pool shape,
 the R-50 box-pool shape and a ragged one (C = 100 in a view at an odd offset,
 which takes the element-by-element loop). The generator and the pooler also run
 at 160 channels, the BiFPN pyramid of the FCOS / CenterMask configurations.
+The pooler runs at C in {20, 160, 256, 257} (16-byte vectors and the
+one-channel path), P 7 and 14, ``aligned`` both ways, on elongated ROIs and
+ROIs partly or wholly outside the map, and every launch split gives the
+same bits. The NMS kernel must equal the blocked plain loop on the card
+entry for entry (``nms_padded`` / ``batched_nms_padded`` outputs, the keep
+mask up to the ``max_out``-th kept box) at the main paths' sizes (RPN 4819,
+FCOS 5000, detection 4096), ties, ragged N, all-invalid input, IoUs at the
+threshold and class offsets.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from afigan_tpu_torch.ops import nms as nms_mod
 from afigan_tpu_torch.ops.kernels import LAUNCHES
 from afigan_tpu_torch.ops.kernels import afi_generator as ag
+from afigan_tpu_torch.ops.kernels import roi_pool as rp
 from afigan_tpu_torch.ops.kernels.layer_norm import fused_layer_norm, fused_layer_norm_plain
+from afigan_tpu_torch.ops.kernels.nms import nms_keep_sorted, nms_keep_sorted_plain
 from afigan_tpu_torch.ops.kernels.roi_pool import roi_pool, roi_pool_plain
 from afigan_tpu_torch.ops.kernels.window_attention import (fused_window_attention,
                                                            fused_window_attention_plain)
@@ -30,6 +41,9 @@ from afigan_tpu_torch.ops.kernels.window_gather import (check_starts, gather_win
                                                         gather_windows_plain)
 from afigan_tpu_torch.ops.roi_align import (assign_boxes_to_levels, multilevel_roi_align,
                                             multilevel_roi_align_windowed)
+# bare: pytest puts tests/ on the path, and a ``tests`` package installed
+# elsewhere would shadow this directory as a namespace package
+from torch_port_nms_cases import CARD_CASES, nms_case
 
 pytestmark = pytest.mark.cuda
 
@@ -102,13 +116,110 @@ def _pool_inputs(rng, dev, c, dtype=torch.float32):
     return strides, feats, boxes
 
 
-@pytest.mark.parametrize("c,p,dtype", [(256, 7, torch.float32), (160, 14, torch.float32),
-                                       (160, 14, torch.bfloat16)])
-def test_roi_pool_kernel_matches_plain(dev, c, p, dtype):
+def _hard_rois(rng, dev):
+    """(2, 12, 4) ROIs on a 128x192 canvas: elongated (up to 12:1), partly
+    outside the map on every side, and wholly outside it."""
+    boxes = [[5, 40, 185, 55], [90, 2, 100, 126], [-30, -20, 40, 30], [150, 100, 230, 160],
+             [-60, 10, -10, 50], [200, 140, 260, 190], [60, -90, 120, -40], [0, 0, 192, 128],
+             [-5, 60, 70, 66], [100, 120, 180, 200], [10, 10, 14, 13], [-1, -1, 0.5, 0.5]]
+    b = np.asarray(boxes, np.float32)
+    jitter = rng.rand(2, *b.shape).astype(np.float32)
+    return torch.from_numpy(b[None] + jitter).to(dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("p", [7, 14])
+@pytest.mark.parametrize("c", [20, 160, 256, 257])
+def test_roi_pool_kernel_matches_plain(dev, c, p, aligned, dtype):
     strides, feats, boxes = _pool_inputs(np.random.RandomState(2), dev, c, dtype)
+    boxes = torch.cat([boxes, _hard_rois(np.random.RandomState(c + p), dev)], dim=1)
     lv = assign_boxes_to_levels(boxes, 2, 5)
-    _close(roi_pool(feats, boxes, lv, strides, p), roi_pool_plain(feats, boxes, lv, strides, p),
-           dtype)
+    n0 = LAUNCHES["roi_pool"]
+    got = roi_pool(feats, boxes, lv, strides, p, 2, aligned)
+    assert LAUNCHES["roi_pool"] == n0 + 1
+    want = roi_pool_plain(feats, boxes, lv, strides, p, 2, aligned)
+    _close(got, want, dtype)
+    # the wholly outside ROIs pool to zeros in both
+    assert float(want[:, 34:37].abs().max()) == 0.0 and float(got[:, 34:37].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("c,p", [(256, 7), (160, 14), (20, 14)])
+def test_roi_pool_kernel_splits_agree(dev, monkeypatch, c, p):
+    """Every split of the launch (output rows and threads a block) computes
+    each output element by the same operations: equal bits."""
+    strides, feats, boxes = _pool_inputs(np.random.RandomState(3), dev, c, torch.bfloat16)
+    lv = assign_boxes_to_levels(boxes, 2, 5)
+    want = roi_pool(feats, boxes, lv, strides, p)
+    for split in [(1, 64), (2, 128), (3, 256), (p, 512), (p, 1024)]:
+        monkeypatch.setattr(rp, "SPLIT", split)
+        assert torch.equal(roi_pool(feats, boxes, lv, strides, p), want), split
+
+
+def _nms_inputs(case, dev):
+    boxes, scores, valid, idxs, thr, max_out = nms_case(case)
+    return (*(torch.from_numpy(a).to(dev) for a in (boxes, scores, valid, idxs)), thr,
+            max_out)
+
+
+def _kept_prefix(keep, count):
+    """Length of the prefix of a keep mask that holds its first ``count``
+    kept entries (all of it where it keeps fewer)."""
+    where = torch.nonzero(keep).flatten()
+    return keep.numel() if where.numel() < count else int(where[count - 1]) + 1
+
+
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_nms_kernel_equals_plain(dev, monkeypatch, case):
+    boxes, scores, valid, idxs, thr, max_out = _nms_inputs(case, dev)
+    n0 = LAUNCHES["nms"]
+    got = nms_mod.batched_nms_padded(boxes, scores, idxs, thr, max_out, valid)
+    got_full = nms_mod.nms_keep_mask(boxes, scores, thr, valid)
+    got_stop = nms_mod.nms_keep_mask(boxes, scores, thr, valid, stop_after=max_out)
+    got_pad = nms_mod.nms_padded(boxes, scores, thr, max_out, valid)
+    assert LAUNCHES["nms"] == n0 + 4
+    monkeypatch.setattr(nms_mod, "nms_keep_sorted", nms_keep_sorted_plain)
+    want = nms_mod.batched_nms_padded(boxes, scores, idxs, thr, max_out, valid)
+    want_full = nms_mod.nms_keep_mask(boxes, scores, thr, valid)
+    want_stop = nms_mod.nms_keep_mask(boxes, scores, thr, valid, stop_after=max_out)
+    want_pad = nms_mod.nms_padded(boxes, scores, thr, max_out, valid)
+    assert LAUNCHES["nms"] == n0 + 4
+    for g, w in [*zip(got, want), *zip(got_pad, want_pad), *zip(got_full, want_full)]:
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(got_stop[0], want_stop[0])
+    upto = _kept_prefix(want_full[1], max_out)
+    assert torch.equal(got_stop[1][:upto], want_stop[1][:upto])
+
+
+@pytest.mark.parametrize("case", ["rpn", "fcos", "all_invalid"])
+def test_nms_calls_make_no_host_sync(dev, case):
+    """Under ``set_sync_debug_mode("error")`` any operation that makes the
+    host wait on the card raises: the NMS route on CUDA tensors has none."""
+    boxes, scores, valid, idxs, thr, max_out = _nms_inputs(case, dev)
+    nms_mod.batched_nms_padded(boxes, scores, idxs, thr, max_out, valid)  # build, load
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nms_mod.batched_nms_padded(boxes, scores, idxs, thr, max_out, valid)
+        nms_mod.nms_padded(boxes, scores, thr, max_out, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+
+
+def test_nms_kernel_batch_entry(dev):
+    """The C entry over a batch of images equals one call per image."""
+    cases = [_nms_inputs(c, dev) for c in ("fcos", "detection")]
+    n = 4096
+    boxes = torch.stack([c[0][:n] for c in cases])
+    valid = torch.stack([c[2][:n] for c in cases])
+    order = torch.stack([torch.sort(-torch.where(c[2][:n], c[1][:n], -1e10), stable=True).indices
+                         for c in cases])
+    both = nms_keep_sorted(boxes, valid, order, 0.6)
+    for i in range(2):
+        assert torch.equal(both[i], nms_keep_sorted(boxes[i:i + 1], valid[i:i + 1],
+                                                    order[i:i + 1], 0.6)[0])
 
 
 # (R, window, C, sumH, Wmax, a view at an odd element offset)
@@ -366,3 +477,7 @@ def test_wrappers_raise_on_mixed_devices(dev):
     q = torch.zeros(2, 1, 16, 16, device=dev)  # head dimension 16
     with pytest.raises(ValueError):
         fused_window_attention(q, q, q, torch.zeros(1, 16, 16, device=dev), scale=1.0)
+    boxes = torch.zeros(1, 8, 4, device=dev)
+    order = torch.arange(8, device=dev)[None]
+    with pytest.raises(ValueError):
+        nms_keep_sorted(boxes, torch.ones(1, 8, dtype=torch.bool), order, 0.5)

@@ -4,6 +4,12 @@ Fixed-shape contracts must agree entry for entry on the same numpy
 inputs: NMS keep masks (ties, ``stop_after``, N not a block multiple),
 ``generate_proposals`` (exact top-k, lowest index first among ties) and
 ``fast_rcnn_inference_single``. float32 on the CPU.
+
+The NMS contract that ``csrc/nms.cu`` implements on the card is pinned here
+too: the blocked loop (the CPU route of ``ops/nms.py``) equals a greedy loop
+in score order on the resolved prefix of its keep mask, and ``nms_padded``
+equals the greedy survivors entry for entry, at ragged sizes around the
+64-box tile, ties, all-invalid input and IoUs exactly at the threshold.
 """
 
 import numpy as np
@@ -21,7 +27,10 @@ from afigan_tpu_torch.models.box_head import fast_rcnn_inference_single
 from afigan_tpu_torch.models.rpn import generate_proposals
 from afigan_tpu_torch.ops.anchors import AnchorGenerator
 from afigan_tpu_torch.ops.boxes import Box2BoxTransform
-from afigan_tpu_torch.ops.nms import batched_nms_padded, nms_keep_mask
+from afigan_tpu_torch.ops.kernels import LAUNCHES
+from afigan_tpu_torch.ops.kernels.nms import nms_keep_sorted, nms_keep_sorted_plain
+from afigan_tpu_torch.ops.nms import batched_nms_padded, nms_keep_mask, nms_padded
+from torch_port_nms_cases import CPU_CASES, greedy_keep, nms_case
 
 
 def _boxes(rng, n, extent=200.0):
@@ -63,6 +72,81 @@ def test_batched_nms_padded_matches_jax():
                              torch.from_numpy(idxs), 0.6, 250, torch.from_numpy(valid))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _greedy(case):
+    boxes, scores, valid, _, thr, _ = nms_case(case)
+    order = np.argsort(-np.where(valid, scores, np.float32(-1e10)), kind="stable")
+    return boxes, scores, valid, thr, order, greedy_keep(boxes[order], valid[order], thr)
+
+
+@pytest.mark.parametrize("stop_after", [0, 7])
+@pytest.mark.parametrize("case", CPU_CASES)
+def test_blocked_nms_equals_greedy_loop(case, stop_after):
+    """The blocked fixpoint's keep mask is greedy NMS on its resolved prefix
+    (all of it without ``stop_after``; up to the stop_after-th kept box with
+    it), and the CPU route launches no kernel."""
+    boxes, scores, valid, thr, order, want = _greedy(case)
+    n0 = LAUNCHES["nms"]
+    got_order, got = nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(scores), thr,
+                                   torch.from_numpy(valid), stop_after=stop_after)
+    assert LAUNCHES["nms"] == n0
+    np.testing.assert_array_equal(got_order.numpy(), order)
+    upto = len(want)
+    if stop_after and want.sum() >= stop_after:
+        upto = int(np.flatnonzero(want)[stop_after - 1]) + 1
+    np.testing.assert_array_equal(got.numpy()[:upto], want[:upto])
+    if case == "at_threshold":  # IoU == threshold keeps both, 3.5/4.5 suppresses
+        assert want.sum() == 2 * len(boxes) // 3
+
+
+@pytest.mark.parametrize("stop_after", [0, 7])
+@pytest.mark.parametrize("case", CPU_CASES)
+def test_nms_padded_equals_greedy_survivors(case, stop_after):
+    """``nms_padded`` returns the greedy survivors in score order, then the
+    suppressed boxes in score order as invalid padding, then zero entries
+    past N: boxes, scores, index and validity entry for entry."""
+    boxes, scores, valid, thr, order, keep = _greedy(case)
+    n = len(boxes)
+    max_out = stop_after or n + 3
+    k = min(max_out, n)
+    sel = np.concatenate([np.flatnonzero(keep), np.flatnonzero(~keep)])[:k]
+    idx, ok = order[sel], keep[sel]
+    want = [boxes[idx], np.where(ok, scores[idx], np.float32(-1e10)), idx, ok]
+    pad = max_out - k
+    want = [np.concatenate([want[0], np.zeros((pad, 4), np.float32)]),
+            np.concatenate([want[1], np.full(pad, -1e10, np.float32)]),
+            np.concatenate([want[2], np.zeros(pad, np.int64)]),
+            np.concatenate([want[3], np.zeros(pad, bool)])]
+    got = nms_padded(torch.from_numpy(boxes), torch.from_numpy(scores), thr, max_out,
+                     torch.from_numpy(valid))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("case", CPU_CASES)
+def test_nms_keep_sorted_plain_is_the_cpu_route(case):
+    """The kernel entry's plain counterpart, over a batch of two images,
+    equals the CPU route of ``nms_keep_mask`` image by image."""
+    boxes, scores, valid, _, thr, _ = nms_case(case)
+    b, v = torch.from_numpy(boxes), torch.from_numpy(valid)
+    s2 = torch.from_numpy(scores[::-1].copy())
+    orders, keeps = zip(*(nms_keep_mask(b, s, thr, v) for s in (torch.from_numpy(scores), s2)))
+    got = nms_keep_sorted_plain(torch.stack([b, b]), torch.stack([v, v]), torch.stack(orders),
+                                thr)
+    assert torch.equal(got, torch.stack(keeps))
+
+
+def test_nms_kernel_entry_raises_on_cpu_tensors():
+    """The kernel's entry never falls back to the loop: CPU tensors raise."""
+    boxes, _, valid, _, thr, _ = nms_case("n65")
+    order = torch.arange(len(boxes))[None]
+    n0 = LAUNCHES["nms"]
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_keep_sorted(torch.from_numpy(boxes)[None], torch.from_numpy(valid)[None], order,
+                        thr)
+    assert LAUNCHES["nms"] == n0
 
 
 def test_generate_proposals_matches_jax():

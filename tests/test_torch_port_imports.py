@@ -20,7 +20,9 @@ from tests.fixtures import make_tiny_coco
 from tests.torch_port_common import REPO
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "afigan_tpu")
-CITATION = re.compile(r"^afigan_tpu/[\w/]+\.py:\d+$")
+# a "file.py:line" citation, optionally with the function and a note:
+# "afigan_tpu/ops/nms.py:36::nms_keep_mask (XLA code, not a Pallas kernel)"
+CITATION = re.compile(r"^afigan_tpu/[\w/]+\.py:\d+(::\w+ \([\w ,]+\))?$")
 PORT_FILES = sorted(
     glob.glob(os.path.join(REPO, "afigan_tpu_torch", "**", "*.py"), recursive=True)
 ) + [os.path.join(REPO, "chip_smoke.py")]
@@ -29,7 +31,7 @@ SUBPACKAGES = ["afigan_tpu_torch." + m for m in (
     "models.swin", "models.bifpn", "models.cascade_roi_heads", "ops.kernels.layer_norm",
     "ops.kernels.window_attention", "ops.kernels.afi_generator", "ops.kernels.roi_pool",
     "ops.kernels.window_gather", "ops.roi_align", "models.fcos", "models.centermask",
-    "utils.converters", "run_net")]
+    "utils.converters", "run_net", "ops.kernels.nms", "ops.nms", "engine.testing")]
 
 
 def _violations(path):
@@ -75,9 +77,11 @@ def test_the_check_sees_imports_and_paths(tmp_path):
                    "import os\nfrom afigan_tpu.config import get_cfg\nimport jax.numpy as jnp\n"
                    "def f():\n    import flax\n"
                    "    return os.path.join('..', 'afigan_tpu', 'data', 'coco.py')\n"
-                   "P = 'afigan_tpu/data/coco.py'\nCITE = 'afigan_tpu/ops/pallas/roi_pool.py:81'\nOK = 'afigan_tpu_torch/csrc/roi_pool.cu'\n")
+                   "P = 'afigan_tpu/data/coco.py'\nCITE = 'afigan_tpu/ops/pallas/roi_pool.py:81'\nOK = 'afigan_tpu_torch/csrc/roi_pool.cu'\n"
+                   "NOTE = 'afigan_tpu/ops/nms.py:36::nms_keep_mask (XLA code, not a Pallas kernel)'\n"
+                   "BAD = 'afigan_tpu/ops/nms.py:36 and more'\n")
     got = _violations(str(src))
-    assert len(got) == 5, got
+    assert len(got) == 6, got
 
 
 def test_importing_the_port_loads_no_jax():
