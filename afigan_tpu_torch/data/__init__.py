@@ -1,9 +1,11 @@
 """Host-side data path of the port: COCO parsing and registry (``coco``),
-resize numerics (``transforms``) and the eval loader (``loader``)."""
+transforms (``transforms``), the training mapper (``dataset_mapper``) and the
+eval and train loaders (``loader``)."""
 
 from . import coco, transforms
-from .loader import (build_test_loader, choose_bucket, collate_batch, map_record,
-                     required_size_divisibility)
+from .loader import (TrainingSampler, build_test_loader, build_train_loader, choose_bucket,
+                     collate_batch, map_record, required_size_divisibility)
 
-__all__ = ["coco", "transforms", "build_test_loader", "choose_bucket",
-           "collate_batch", "map_record", "required_size_divisibility"]
+__all__ = ["coco", "transforms", "TrainingSampler", "build_test_loader",
+           "build_train_loader", "choose_bucket", "collate_batch", "map_record",
+           "required_size_divisibility"]

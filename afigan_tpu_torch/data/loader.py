@@ -1,9 +1,13 @@
-"""Test-time data loading for the port (counterpart of
-``afigan_tpu/data/loader.py`` and ``dataset_mapper.py``, eval only).
+"""Data loading for the port (counterpart of ``afigan_tpu/data/loader.py``
+and the eval part of ``dataset_mapper.py``).
 
-The eval mapper (read, resize shortest edge) and the collate step (pad to a
+The eval mapper (read, resize shortest edge), the collate step (pad to a
 ``TPU.IMAGE_BUCKETS`` canvas rounded up to the model's size divisibility,
-stack) in numpy, equal to the JAX package's for eval batches.
+stack; with the padded GT of training samples) in numpy, equal to the JAX
+package's; d2's infinite shuffled ``TrainingSampler``; and
+``build_train_loader``, a plain iterator of collated training batches (no
+worker threads or prefetch: the train step's device time dwarfs the host's
+mapping at these batch sizes).
 """
 
 from __future__ import annotations
@@ -53,13 +57,51 @@ def collate_batch(samples: List[Dict], buckets, size_divisibility: int = 64) -> 
     canvas = np.zeros((len(imgs), ch, cw, imgs[0].shape[2]), imgs[0].dtype)
     for k, im in enumerate(imgs):
         canvas[k, : im.shape[0], : im.shape[1]] = im
-    return {
+    batch = {
         "image": canvas,
         "image_sizes": np.asarray([[i.shape[0], i.shape[1]] for i in imgs], np.int32),
         "image_id": np.asarray([s["image_id"] for s in samples]),
         "orig_sizes": np.asarray([[s["orig_height"], s["orig_width"]]
                                   for s in samples], np.int32),
     }
+    if "gt" in samples[0]:
+        batch["gt"] = {k: np.stack([s["gt"][k] for s in samples]) for k in samples[0]["gt"]}
+    return batch
+
+
+class TrainingSampler:
+    """Infinite shuffled index stream, one ``np.random.RandomState(seed +
+    epoch)`` permutation an epoch (d2 semantics, one process)."""
+
+    def __init__(self, size: int, seed: int = 0, shuffle: bool = True):
+        self.size = size
+        self.seed = seed
+        self.shuffle = shuffle
+
+    def __iter__(self) -> Iterator[int]:
+        epoch = 0
+        while True:
+            idx = np.arange(self.size)
+            if self.shuffle:
+                np.random.RandomState(self.seed + epoch).shuffle(idx)
+            yield from idx.tolist()
+            epoch += 1
+
+
+def build_train_loader(cfg, dataset, seed: int = 0) -> Iterator[Dict]:
+    """Collated training batches of ``SOLVER.IMS_PER_BATCH`` images, forever."""
+    from .dataset_mapper import DatasetMapper
+
+    if cfg.DATALOADER.SAMPLER_TRAIN != "TrainingSampler":
+        raise NotImplementedError(f"DATALOADER.SAMPLER_TRAIN {cfg.DATALOADER.SAMPLER_TRAIN!r} "
+                                  "is not ported yet")
+    mapper = DatasetMapper(cfg, is_train=True, seed=seed)
+    div = required_size_divisibility(cfg)
+    sampler = iter(TrainingSampler(len(dataset.records), seed))
+    while True:
+        idxs = [next(sampler) for _ in range(cfg.SOLVER.IMS_PER_BATCH)]
+        yield collate_batch([mapper(dataset.records[i]) for i in idxs],
+                            cfg.TPU.IMAGE_BUCKETS, div)
 
 
 def build_test_loader(cfg, dataset, batch_size: int = 1) -> Iterator[Dict]:

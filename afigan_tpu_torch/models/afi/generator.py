@@ -10,24 +10,45 @@ Parameters carry the d2 reference's names (``Generators.0.0.0`` head,
 ``.3.0`` transposed conv, ``.4.0`` tail), so
 ``afigan_tpu.utils.converters`` maps them 1:1.
 
-The forward always goes through ``ops/kernels/afi_generator.py``
-(hand-written CUDA kernels on the card, the plain PyTorch versions on the
-CPU), split as the JAX package's fused path splits it: with three dense
-blocks ``fused_generator_chain`` + ``fused_upsample``; with any other
-number the head conv (the same conv kernel), one ``fused_rdb`` per block
-with the RiR residual folded into the last block's epilogue, then
-``fused_upsample``. On the card neither branch runs a library convolution
-or a residual in torch. ``MODEL.AFI.FUSED_KERNEL`` is not read.
+Inference goes through ``ops/kernels/afi_generator.py`` (hand-written CUDA
+kernels on the card, the plain PyTorch versions on the CPU), split as the JAX
+package's fused path splits it: with three dense blocks
+``fused_generator_chain`` + ``fused_upsample``; with any other number the
+head conv (the same conv kernel), one ``fused_rdb`` per block with the RiR
+residual folded into the last block's epilogue, then ``fused_upsample``. On
+the card neither branch runs a library convolution or a residual in torch.
+``MODEL.AFI.FUSED_KERNEL`` is not read.
+
+Training (the module in training mode, autograd recording for its weights
+or its input) takes the unfused route instead: the module's own convolutions under
+autograd, the counterpart of ``afigan_tpu/models/afi/generator.py::_unfused``.
+The JAX package never trains through its Pallas kernels either
+(``afigan_tpu/models/build.py::_use_fused_afi`` is false when training), and
+the kernels are forward-only: their wrappers raise under autograd.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ...ops.kernels.afi_generator import (GeneratorLayout, conv3x3, fused_generator_chain,
                                           fused_rdb, fused_upsample, lay_out_generator)
-from ..layers import init_weight
+from ..layers import bilinear_upsample_x2, init_weight, to_nchw, to_nhwc
+
+
+def _conv(m, x, **kw):
+    """An ``nn.Conv2d`` / ``nn.ConvTranspose2d`` of the module over NHWC, its
+    float32 weights cast to the activation dtype (the JAX ``param_dtype``
+    float32 / ``dtype`` compute split)."""
+    fn = F.conv_transpose2d if isinstance(m, nn.ConvTranspose2d) else F.conv2d
+    b = None if m.bias is None else m.bias.to(x.dtype)
+    return to_nhwc(fn(to_nchw(x), m.weight.to(x.dtype), b, m.stride, m.padding, **kw))
+
+
+def _lrelu(x):
+    return F.leaky_relu(x, 0.2)
 
 
 class ResidualDenseBlock(nn.Module):
@@ -116,7 +137,29 @@ class AFIGenerator(nn.Module):
             self._laid_key = key
         return self._laid
 
+    def _unfused(self, x):
+        """The training route: the JAX ``_unfused`` wiring over the module's
+        layers, differentiable under autograd."""
+        head, rir, mid, up, tail = self.Generators[0]
+        rs = self.residual_scale
+        h = y = _lrelu(_conv(head[0], x))
+        for blk in rir.RDBs:
+            feats = [y]
+            for i in range(4):
+                feats.append(_lrelu(_conv(getattr(blk, f"conv{i + 1}")[0],
+                                          torch.cat(feats, dim=-1))))
+            y = y + _conv(blk.conv5, torch.cat(feats, dim=-1)) * rs
+        y = h + y * rs
+        y = _lrelu(_conv(mid[0], y))
+        y = _lrelu(_conv(up[0], y))
+        return _conv(tail[0], y) + bilinear_upsample_x2(x.float()).to(x.dtype)
+
     def forward(self, x):
+        # recording for the weights, or for the input behind a frozen
+        # generator (MODEL.AFI_FREEZE still trains the layers before it)
+        if self.training and torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            return self._unfused(x)
         head_w, head_b, rdb_ws, *up_ws = self._weights()
         rs = self.residual_scale
         # the plain versions on the CPU read the torch layout itself

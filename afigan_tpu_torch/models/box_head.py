@@ -1,5 +1,5 @@
-"""Fast R-CNN box head, output layers and fixed-shape inference
-(counterpart of ``afigan_tpu/models/box_head.py``, inference only)."""
+"""Fast R-CNN box head, output layers, losses and fixed-shape inference
+(counterpart of ``afigan_tpu/models/box_head.py``)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.boxes import clip_boxes, nonempty_mask
+from ..ops.losses import smooth_l1
 from ..ops.nms import batched_nms_padded
 from .layers import Conv2d, Linear, init_weight
 
@@ -75,6 +76,30 @@ class FastRCNNOutputLayers(nn.Module):
 
     def forward(self, x):
         return self.cls_score(x), self.bbox_pred(x)
+
+
+def fast_rcnn_losses(class_logits, pred_deltas, gt_classes, gt_deltas, valid,
+                     num_classes: int, smooth_l1_beta: float = 0.0):
+    """class_logits (R, C+1); pred_deltas (R, 4C) or (R, 4); gt_classes (R,)
+    in [0, C] (C is background); gt_deltas (R, 4); valid (R,) → softmax CE
+    over the valid rows / their count, and smooth-L1 of the GT class's deltas
+    over the valid foreground rows / the same count (d2 fast_rcnn.py)."""
+    logits = class_logits.float()
+    n_valid = torch.clamp(valid.float().sum(), min=1.0)
+    zero = torch.zeros((), device=logits.device)
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, 1, gt_classes.long()[:, None])[:, 0]
+    loss_cls = torch.where(valid, ce, zero).sum() / n_valid
+    fg = valid & (gt_classes < num_classes)
+    d = pred_deltas.float().reshape(pred_deltas.shape[0], -1, 4)
+    if d.shape[1] == 1:
+        sel = d[:, 0]
+    else:
+        cls = torch.clamp(gt_classes.long(), 0, num_classes - 1)
+        sel = torch.gather(d, 1, cls[:, None, None].expand(-1, 1, 4))[:, 0]
+    l1 = smooth_l1(sel, gt_deltas, smooth_l1_beta)
+    loss_box = torch.where(fg[:, None], l1, zero).sum() / n_valid
+    return {"loss_cls": loss_cls, "loss_box_reg": loss_box}
 
 
 class Detections(NamedTuple):

@@ -98,7 +98,9 @@ def build_roi_heads(cfg, device=None) -> StandardROIHeads:
         detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
         sampling_ratio=max(bh.POOLER_SAMPLING_RATIO, 2),
         aligned=bh.POOLER_TYPE != "ROIAlign", pooler_impl=cfg.TPU.POOLER_IMPL,
-        device=device)
+        batch_size_per_image=rh.BATCH_SIZE_PER_IMAGE, positive_fraction=rh.POSITIVE_FRACTION,
+        iou_threshold=rh.IOU_THRESHOLDS[0], append_gt=rh.PROPOSAL_APPEND_GT,
+        smooth_l1_beta=bh.SMOOTH_L1_BETA, device=device)
     if rh.NAME == "CascadeROIHeads":
         return CascadeROIHeads(
             cascade_bbox_reg_weights=tuple(
@@ -144,20 +146,26 @@ def _build_rcnn(cfg, device) -> GeneralizedRCNN:
         rpn_channels=pyramid_channels(cfg),
         rpn_bbox_reg_weights=tuple(rpn.BBOX_REG_WEIGHTS),
         pre_nms_topk=rpn.PRE_NMS_TOPK_TEST, post_nms_topk=rpn.POST_NMS_TOPK_TEST,
-        rpn_nms_thresh=rpn.NMS_THRESH,
+        pre_nms_topk_train=rpn.PRE_NMS_TOPK_TRAIN,
+        post_nms_topk_train=rpn.POST_NMS_TOPK_TRAIN, rpn_nms_thresh=rpn.NMS_THRESH,
+        rpn_iou_thresholds=tuple(rpn.IOU_THRESHOLDS),
+        rpn_batch_size_per_image=rpn.BATCH_SIZE_PER_IMAGE,
+        rpn_positive_fraction=rpn.POSITIVE_FRACTION, rpn_smooth_l1_beta=rpn.SMOOTH_L1_BETA,
+        rpn_loss_weight=rpn.LOSS_WEIGHT,
         rpn_min_size=cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE,
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN), pixel_std=tuple(cfg.MODEL.PIXEL_STD),
         dtype=compute_dtype(cfg), device=device)
 
 
-def build_model(cfg, device="cuda",
-                generator: Optional[torch.Generator] = None) -> nn.Module:
+def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None,
+                train: bool = False) -> nn.Module:
     """META_ARCHITECTURE (``GeneralizedRCNN``, ``FCOS``, ``CenterMask``) → an
     eval-mode model on ``device``: the GPU unless the caller asks for ``"cpu"``.
     Without a GPU the default raises; nothing carries on silently on the CPU.
     With ``generator``, weights are drawn from it (the JAX package's init
     distributions); otherwise they are torch's defaults, to be replaced by
-    ``load_state_dict``."""
+    ``load_state_dict``. ``train`` returns it in training mode (only
+    ``GeneralizedRCNN`` with standard ROI heads trains so far)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -170,6 +178,11 @@ def build_model(cfg, device="cuda",
         model = _build_rcnn(cfg, device)
     else:
         raise NotImplementedError(f"META_ARCHITECTURE {arch!r} {_TODO}")
+    if train and (arch != "GeneralizedRCNN"
+                  or cfg.MODEL.ROI_HEADS.NAME != "StandardROIHeads"):
+        raise NotImplementedError(
+            f"training {arch} / {cfg.MODEL.ROI_HEADS.NAME} is not ported yet (ROADMAP "
+            "queue 1, the breadth families)")
     if generator is not None:
         model.init_weights(generator)
-    return model.eval()
+    return model.train(train)

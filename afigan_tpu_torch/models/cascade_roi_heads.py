@@ -33,6 +33,11 @@ class CascadeROIHeads(StandardROIHeads):
         self.box_predictor = nn.ModuleList(
             make_predictor(h.out_dim, True) for h in self.box_head)
 
+    def losses(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Cascade R-CNN training is not ported yet (ROADMAP queue 1, the breadth "
+            "families)")
+
     def forward(self, features, proposals, image_sizes):
         b, k = proposals.scores.shape
         boxes = proposals.proposals

@@ -42,10 +42,12 @@ PTXAS_LOG: Dict[str, str] = {}
 
 # Launches of the hand-written kernels, by the JAX function each replaces.
 # A wrapper adds one where it launches a kernel, and nowhere else; "nms"
-# counts calls of its C entry (a mask and a reduce launch each).
+# counts calls of its C entry (a mask and a reduce launch each), and
+# "roi_pool_bwd" calls of the pool's backward entry (the scatter, and a cast
+# for bfloat16 levels).
 LAUNCHES: Dict[str, int] = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0,
-                            "roi_pool": 0, "layer_norm": 0, "window_attention": 0,
-                            "window_gather": 0, "nms": 0}
+                            "roi_pool": 0, "roi_pool_bwd": 0, "layer_norm": 0,
+                            "window_attention": 0, "window_gather": 0, "nms": 0}
 
 
 def reset_launches() -> None:
@@ -117,7 +119,9 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        "roi_pool": {"roi_pool_forward": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, I, P]},
+        "roi_pool": {"roi_pool_forward": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, I, P],
+                     "roi_pool_backward": [P, P, P, P, P, I, P, P, P, P, ctypes.c_longlong,
+                                           I, I, I, I, I, I, I, I, I, P]},
         "afi_conv3x3": {
             "afi_conv3x3": [P, P, I, P, P, P, F, P, F, P, P, I, I, I, I, I, I, I, P],
             "afi_rdb_chain": [P, P, P, P, P, I, F, P, F, I, I, I, I, I, I, I, P]},
@@ -134,6 +138,20 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn = getattr(lib, fname)
         fn.argtypes = argtypes
         fn.restype = I
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """A forward-only kernel under autograd would hand back a tensor with no
+    graph and train nothing behind it, silently: raise instead. Called on the
+    CUDA route only (the plain versions on the CPU are differentiable)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: a forward-only CUDA kernel called under autograd with an input "
+            "that requires grad; run it under torch.no_grad() / inference_mode(), "
+            "or take the module's training route")
 
 
 def check(rc: int, what: str) -> None:

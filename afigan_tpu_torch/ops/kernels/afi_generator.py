@@ -166,6 +166,7 @@ def conv3x3(srcs: Sequence[torch.Tensor], weight, bias=None, leaky=False,
     srcs = list(srcs)
     if _on_cpu([*srcs, weight, bias, res1, res2, skip]):
         return conv3x3_plain(srcs, weight, bias, leaky, res1, s1, res2, s2, skip)
+    _build.refuse_grad("conv3x3", *srcs, weight, bias, res1, res2, skip)
     x0 = srcs[0]
     dcode = _build.dtype_code(x0)
     if not 1 <= len(srcs) <= 5:
@@ -243,6 +244,7 @@ def subpixel_deconv(x, w_iohw, bias, leaky=True, counter="afi_upsample", laid=No
     ``lay_out_deconv(w_iohw, bias, dtype)`` made ahead, for the card."""
     if _on_cpu([x, w_iohw, bias]):
         return subpixel_deconv_plain(x, w_iohw, bias, leaky)
+    _build.refuse_grad("subpixel_deconv", x, w_iohw, bias)
     dcode = _build.dtype_code(x)
     if not x.is_contiguous() or x.dim() != 4:
         raise ValueError("x must be contiguous NHWC")
@@ -382,6 +384,7 @@ def fused_rdb(x, weights, residual_scale=0.2, outer=None, outer_scale=1.0, laid=
     weights = list(weights)
     if _on_cpu([x, outer, *weights]):
         return fused_rdb_plain(x, weights, residual_scale, outer, outer_scale)
+    _build.refuse_grad("fused_rdb", x, outer, *weights)
     return _rdb_chain_card(x, None, [weights], residual_scale, outer, outer_scale, None,
                            None if laid is None else [laid], "afi_rdb")
 
@@ -403,6 +406,7 @@ def fused_generator_chain(x, head_w, head_b, rdb_weights, residual_scale=0.2, la
     rdb_weights = [list(ws) for ws in rdb_weights]
     if _on_cpu([x, head_w, head_b, *_flat(rdb_weights)]):
         return fused_generator_chain_plain(x, head_w, head_b, rdb_weights, residual_scale)
+    _build.refuse_grad("fused_generator_chain", x, head_w, head_b, *_flat(rdb_weights))
     return _rdb_chain_card(x, (head_w, head_b), rdb_weights, residual_scale, None, 1.0,
                            None if laid is None else laid.head,
                            None if laid is None else laid.rdbs, "afi_chain")
@@ -422,6 +426,7 @@ def fused_upsample(r, x, wmid, bmid, wup, bup, wtail, btail, laid=None):
     weights = (wmid, bmid, wup, bup, wtail, btail)
     if _on_cpu([r, x, *weights]):
         return fused_upsample_plain(r, x, *weights)
+    _build.refuse_grad("fused_upsample", r, x, *weights)
     dcode = _build.dtype_code(x)
     r, x = r.contiguous(), x.contiguous()
     _check_act(r, x, "r")

@@ -35,6 +35,7 @@ def fused_layer_norm(x, scale, bias, eps: float = 1e-5,
         return fused_layer_norm_plain(x, scale, bias, eps, out_dtype)
     if devs != {"cuda"}:
         raise ValueError(f"tensors on mixed or unsupported devices: {devs}")
+    _build.refuse_grad("layer_norm", x, scale, bias)
     out_dtype = out_dtype or x.dtype
     c = x.shape[-1]
     if tuple(scale.shape) != (c,) or tuple(bias.shape) != (c,):

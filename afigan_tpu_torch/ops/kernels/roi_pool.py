@@ -1,6 +1,8 @@
 """Multi-level ROIAlign pool: the port of
 ``afigan_tpu/ops/pallas/roi_pool.py::fused_window_pool`` (as driven by
-``afigan_tpu/ops/roi_align.py::multilevel_roi_align_pallas``).
+``afigan_tpu/ops/roi_align.py::multilevel_roi_align_pallas``), and its
+backward, the port of that function's custom VJP
+(``_pallas_pool_bwd_dense``, XLA code in the JAX package).
 
 On a CUDA tensor: ``csrc/roi_pool.cu``, which samples the level maps in
 place (no window, no pyramid concat, no overflow pass): a block per ROI and
@@ -8,6 +10,12 @@ group of output rows, 16-byte loads and stores over channel vectors where C
 allows. On a CPU tensor:
 the gather formulation of ``afigan_tpu/ops/roi_align.py::
 multilevel_roi_align`` / ``_bilinear_gather``, batched over images.
+
+``roi_pool_backward`` gives the level maps' gradient (the boxes get none): on
+CUDA tensors ``csrc/roi_pool.cu::roi_pool_backward`` (float32 atomics into one
+zeroed buffer, cast once to the levels' dtype); on CPU tensors
+``roi_pool_backward_plain``, ``torch.autograd.grad`` through the gather (an
+indexed scatter). ``RoIPool`` joins the two under autograd.
 """
 
 from __future__ import annotations
@@ -116,6 +124,7 @@ def roi_pool(features: Sequence[torch.Tensor], boxes, levels,
                               sampling_ratio, aligned)
     if devs != {"cuda"}:
         raise ValueError(f"tensors on mixed or unsupported devices: {devs}")
+    _build.refuse_grad("roi_pool", *feats, boxes)
     f0 = feats[0]
     dcode = _build.dtype_code(f0)
     b, c = f0.shape[0], f0.shape[-1]
@@ -151,3 +160,94 @@ def roi_pool(features: Sequence[torch.Tensor], boxes, levels,
     _build.check(rc, "roi_pool_forward")
     LAUNCHES["roi_pool"] += 1
     return out
+
+
+def roi_pool_backward_plain(features: Sequence[torch.Tensor], boxes, levels, grad,
+                            strides: Sequence[int], output_size: int,
+                            sampling_ratio: int = 2, aligned: bool = True):
+    """``torch.autograd.grad`` of ``roi_pool_plain``'s output against ``grad``
+    with respect to the levels: one tensor per level, in its dtype. The levels
+    go in as float32 copies (the same values: the pool reads bfloat16 as
+    float32), so the gather's scatter sums in float32 and rounds once, as the
+    JAX adjoint does (``acc.astype(f.dtype)``)."""
+    with torch.enable_grad():
+        leaves = [f.detach().float().requires_grad_(True) for f in features]
+        out = roi_pool_plain(leaves, boxes, levels, strides, output_size,
+                             sampling_ratio, aligned)
+        grads = torch.autograd.grad(out, leaves, grad)
+    return [g.to(f.dtype) for g, f in zip(grads, features)]
+
+
+def roi_pool_backward(features: Sequence[torch.Tensor], boxes, levels, grad,
+                      strides: Sequence[int], output_size: int,
+                      sampling_ratio: int = 2, aligned: bool = True):
+    """Gradient of ``roi_pool``'s (B, R, P, P, C) float32 output, ``grad``,
+    with respect to each level (B, H_l, W_l, C), returned in the levels' dtype.
+    Only the levels' shapes, dtype and device are read on the card."""
+    feats = list(features)
+    devs = {t.device.type for t in (*feats, boxes, levels, grad)}
+    if devs == {"cpu"}:
+        return roi_pool_backward_plain(feats, boxes, levels, grad, strides, output_size,
+                                       sampling_ratio, aligned)
+    if devs != {"cuda"}:
+        raise ValueError(f"tensors on mixed or unsupported devices: {devs}")
+    f0 = feats[0]
+    dcode = _build.dtype_code(f0)
+    b, c = f0.shape[0], f0.shape[-1]
+    if len(feats) != len(strides) or not 1 <= len(feats) <= 8:
+        raise ValueError("one stride per level, 1..8 levels")
+    for i, f in enumerate(feats):
+        if f.dtype != f0.dtype or f.dim() != 4 or f.shape[0] != b or f.shape[-1] != c:
+            raise ValueError(f"level {i}: {tuple(f.shape)} {f.dtype} vs level 0")
+    if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[0] != b \
+            or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes must be float32 (B, R, 4), got {tuple(boxes.shape)}")
+    r, p = boxes.shape[1], output_size
+    if tuple(levels.shape) != (b, r):
+        raise ValueError(f"levels {tuple(levels.shape)} != {(b, r)}")
+    if grad.dtype != torch.float32 or tuple(grad.shape) != (b, r, p, p, c):
+        raise ValueError(f"grad must be float32 {(b, r, p, p, c)}, got "
+                         f"{tuple(grad.shape)} {grad.dtype}")
+    if b * r == 0:  # nothing to scatter: no launch
+        return [torch.zeros_like(f) for f in feats]
+    sizes = [f.numel() for f in feats]
+    offs = [sum(sizes[:i]) for i in range(len(feats))]
+    acc = torch.zeros(sum(sizes), device=f0.device, dtype=torch.float32)
+    out = acc if dcode == 0 else torch.empty(sum(sizes), device=f0.device, dtype=f0.dtype)
+    g = grad.contiguous()
+    bx = boxes.contiguous()
+    lv = levels.to(torch.int32).contiguous()
+    nl = len(feats)
+    lib = _build.load("roi_pool")
+    rc = lib.roi_pool_backward(
+        acc.data_ptr(), (ctypes.c_longlong * nl)(*offs),
+        (ctypes.c_int * nl)(*[int(f.shape[1]) for f in feats]),
+        (ctypes.c_int * nl)(*[int(f.shape[2]) for f in feats]),
+        (ctypes.c_float * nl)(*[1.0 / s for s in strides]),
+        nl, bx.data_ptr(), lv.data_ptr(), g.data_ptr(),
+        None if dcode == 0 else out.data_ptr(), sum(sizes), b * r, r, c, p,
+        sampling_ratio, int(bool(aligned)), dcode, *SPLIT, _build.stream_ptr())
+    _build.check(rc, "roi_pool_backward")
+    LAUNCHES["roi_pool_bwd"] += 1
+    return [out[o:o + n].view(f.shape) for o, n, f in zip(offs, sizes, feats)]
+
+
+class RoIPool(torch.autograd.Function):
+    """``roi_pool`` under autograd: the forward is the pool (kernel or plain
+    version by device), the backward ``roi_pool_backward``; the boxes and the
+    levels get no gradient (JAX's custom VJP returns zeros for the boxes: the
+    detector stops the proposals' gradient)."""
+
+    @staticmethod
+    def forward(ctx, boxes, levels, strides, output_size, sampling_ratio, aligned,
+                *features):
+        ctx.save_for_backward(boxes, levels, *features)
+        ctx.args = (tuple(strides), output_size, sampling_ratio, aligned)
+        return roi_pool(features, boxes, levels, strides, output_size, sampling_ratio,
+                        aligned)
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, levels, *features = ctx.saved_tensors
+        grads = roi_pool_backward(features, boxes, levels, grad.float(), *ctx.args)
+        return (None,) * 6 + tuple(grads)

@@ -63,6 +63,7 @@ def fused_window_attention(q, k, v, bias, mask: Optional[torch.Tensor] = None,
         return fused_window_attention_plain(q, k, v, bias, mask, scale=scale)
     if devs != {"cuda"}:
         raise ValueError(f"tensors on mixed or unsupported devices: {devs}")
+    _build.refuse_grad("window_attention", *tensors)
     dcode = _build.dtype_code(q)
     bnw, nh, n, d = q.shape
     if d != HEAD_DIM or not 1 <= n <= MAX_TOKENS:

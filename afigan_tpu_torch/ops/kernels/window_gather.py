@@ -51,6 +51,7 @@ def gather_windows(concat, rows, cols, window: int):
         return gather_windows_plain(concat, rows, cols, window)
     if devs != {"cuda"}:
         raise ValueError(f"tensors on mixed or unsupported devices: {devs}")
+    _build.refuse_grad("gather_windows", concat)
     elt = {0: 4, 1: 2}[_build.dtype_code(concat)]
     if concat.dim() != 3 or not concat.is_contiguous():
         raise ValueError(f"concat must be contiguous (sumH, Wmax, C), got "

@@ -7,7 +7,9 @@ All take per-level (B, H_l, W_l, C) maps and (B, R, 4) boxes and return
 (B, R, P, P, C) float32. Routing, window geometry and the interpolation
 products are plain torch (XLA code outside the kernels in JAX).
 
-``pool_rois`` is the ``TPU.POOLER_IMPL`` dispatch of every head:
+``pool_rois`` is the ``TPU.POOLER_IMPL`` dispatch of every head (training
+takes ``pallas`` or ``gather``: the windowed form's copy kernel is
+forward-only and raises under autograd):
 
 =========  ==============================================================
 pallas     ``multilevel_roi_align_pallas``: ``ops/kernels/roi_pool.py``
@@ -28,7 +30,7 @@ from typing import Sequence
 
 import torch
 
-from .kernels.roi_pool import roi_pool, roi_pool_plain
+from .kernels.roi_pool import RoIPool, roi_pool, roi_pool_plain
 from .kernels.window_gather import gather_windows
 
 POOLER_IMPLS = ("pallas", "fast", "windowed", "gather")
@@ -55,10 +57,12 @@ def _route(features, boxes, strides):
 def multilevel_roi_align_pallas(features: Sequence[torch.Tensor], boxes,
                                 strides: Sequence[int], output_size: int,
                                 sampling_ratio: int = 2, aligned: bool = True):
-    """The pool kernel on CUDA tensors (its plain version on CPU tensors)."""
-    boxes, levels = _route(features, boxes, strides)
-    return roi_pool(features, boxes, levels, strides, output_size,
-                    sampling_ratio, aligned)
+    """The pool kernel on CUDA tensors (its plain version on CPU tensors),
+    differentiable in the levels: under autograd its backward is the pool's
+    backward kernel (``RoIPool``; the boxes get no gradient)."""
+    boxes, levels = _route(features, boxes.detach(), strides)
+    return RoIPool.apply(boxes, levels, tuple(strides), output_size, sampling_ratio,
+                         aligned, *features)
 
 
 def multilevel_roi_align(features: Sequence[torch.Tensor], boxes,

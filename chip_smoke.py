@@ -9,7 +9,7 @@ Phases, always all (any failure exits non-zero; nothing falls back to the
 CPU):
   1. build    compile every CUDA kernel from ``afigan_tpu_torch/csrc`` (one nvcc
               per source, in parallel); print the card and its power limit
-  2. kernels  each of the eight kernels against its plain PyTorch version at
+  2. kernels  each of the nine kernels against its plain PyTorch version at
               the shapes of the paths that run it (the generator and the pooler
               at 256 and at 160 channels), float32 with TF32 off and
               bfloat16: error, median CUDA-event time of both and of the one
@@ -30,7 +30,10 @@ CPU):
               to the blocked plain loop on the card entry for entry (outputs,
               orders, keep masks up to the max_out-th kept box) at the RPN,
               FCOS and detection sizes and the contract's corner cases, and a
-              keep mask with one kept box flipped must fail that check
+              keep mask with one kept box flipped must fail that check. The
+              pool's backward at the train step's shapes (box pool 2 x 512 ROIs
+              at P 7, mask pool 2 x 128 at P 14, C 256) against autograd through
+              the plain gather; the plain gradient without one ROI must fail
   3. slice    Mask R-CNN R-50-FPN + AF interpolator at full width (bf16, random
               weights from a seeded torch.Generator) through ``build_model``
               and ``predict`` on random-pixel batches of an 832x1344 canvas;
@@ -61,11 +64,22 @@ CPU):
               line; then 10 batches with the NMS kernel against 10 with the
               blocked plain loop on the card, alternating, medians and layer
               splits side by side (the plain route is this script's switch)
-  7. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
+  7. train    stage-3 training of Mask R-CNN R-50-FPN(AFI) at full width
+              (``configs/step3_afigan_mask_rcnn_R_50_FPN_3x.yaml``, bf16, batch
+              2, 832x1344) through ``TargetDetectorTrainer``: two iterations of
+              ``train()`` over an in-memory dataset, then 2 + 10 steps on one
+              repeated batch (launches per step asserted: 2 pool forwards, 2
+              pool backwards, 2 NMS, no generator kernel; losses finite and
+              falling), ms per step, images/s, peak memory, one profiled step
+              and a forward / backward / optimizer split
+  8. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
               and the CPU (plain versions) on the same weights; detections must
               agree at the golden-regression tolerances. The R-50 model under
               both poolers, a narrow Swin model (embed 32, window 4) and a
               narrow CenterMask under ``windowed``
+  9. train_card_vs_cpu  one stage-3 step of a narrow float32 model on the
+              card and on the CPU with the same weights, batch and subsample
+              keys: losses and trainable gradients must agree
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -102,6 +116,9 @@ KERNELS = {
                       "afigan_tpu/ops/pallas/window_gather.py:44", "centermask_windowed"),
     "nms": ("afigan_tpu_torch/csrc/nms.cu",
             "afigan_tpu/ops/nms.py:36::nms_keep_mask (XLA code, not a Pallas kernel)", "r50"),
+    "roi_pool_bwd": ("afigan_tpu_torch/csrc/roi_pool.cu",
+                     "afigan_tpu/ops/roi_align.py:720::_pallas_pool_bwd_dense (XLA adjoint, "
+                     "not a Pallas kernel)", "train"),
 }
 
 # max|kernel - plain| <= rel * max|plain| + abs
@@ -442,13 +459,16 @@ def kernels_generator(results):
 
 
 PORT_KERNELS = ("afi::", "roi_pool_kernel", "layer_norm_kernel", "window_attention_",
-                "window_gather_kernel", "nms_mask_kernel", "nms_reduce_kernel")
+                "window_gather_kernel", "nms_mask_kernel", "nms_reduce_kernel",
+                "roi_pool_bwd_kernel", "cast_bf16_kernel")
 
 
 def device_kernels(counts):
     """The device kernels that the wrappers' launch counts stand for: one
-    each, but two for a call of the NMS entry (its mask and its reduce)."""
-    return sum(counts.values()) + counts.get("nms", 0)
+    each, but two for a call of the NMS entry (its mask and its reduce) and
+    two for a call of the pool's backward on bfloat16 levels (the scatter and
+    the cast: every backward this script profiles is bfloat16)."""
+    return sum(counts.values()) + counts.get("nms", 0) + counts.get("roi_pool_bwd", 0)
 
 
 def device_events(fn, expected, record_shapes=False, tries=3):
@@ -610,6 +630,63 @@ def kernels_roi_pool(results):
             nbytes = read + B * n * p * p * c * 4 + B * n * 20
             tally(results, "roi_pool", path, dtype_name).add(
                 tk, tp, nbytes, 2 * 4 * samples * c, "float32", e, count)
+
+
+def kernels_roi_pool_backward(results):
+    """The pool's backward at the stage-3 train step's shapes: the box pool
+    (512 sampled ROIs an image, P = 7) and the mask pool (128 foreground ROIs
+    an image, P = 14) over p2-p5 of the 832x1344 canvas, against
+    ``torch.autograd.grad`` through the plain gather (summed in float32). The
+    kernel's float32 atomics add in a run-dependent order: a tolerance, never
+    bit equality. The bound must reject the plain gradient without the
+    contribution of one ROI (the smallest: its samples pile onto the fewest
+    taps)."""
+    import torch
+
+    from afigan_tpu_torch.ops.kernels.roi_pool import roi_pool_backward, roi_pool_backward_plain
+    from afigan_tpu_torch.ops.roi_align import assign_boxes_to_levels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    B, S, strides = 2, 2, (4, 8, 16, 32)
+    for dtype_name in DTYPES:
+        dt = getattr(torch, dtype_name)
+        feats = [torch.randn((B, R50_CANVAS[0] // s, R50_CANVAS[1] // s, 256),
+                             generator=gen).to(dev, dt) for s in strides]
+        for p, n in ((7, 512), (14, 128)):
+            boxes = _boxes(B, n, R50_CANVAS, gen, dev)
+            lv = assign_boxes_to_levels(boxes, 2, 5)
+            grad = torch.randn((B, n, p, p, 256), generator=gen).to(dev)
+            args = (feats, boxes, lv, grad, strides, p, S, True)
+            fk = lambda: roi_pool_backward(*args)  # noqa: E731
+            fp = lambda: roi_pool_backward_plain(*args)  # noqa: E731
+
+            def flat(gs):
+                return torch.cat([g.float().flatten() for g in gs])
+
+            g_k, g_p = flat(fk()), flat(fp())
+            torch.cuda.synchronize()
+            tag = f"{dtype_name} train C=256 P={p} N={B}x{n}"
+            e = compare(f"roi_pool_bwd {tag}", g_k, g_p, "pool", dtype_name)
+            area = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+            drop = int(area[0].argmin())
+            left_out = grad.clone()
+            left_out[0, drop] = 0.0
+            short = flat(roi_pool_backward_plain(feats, boxes, lv, left_out, strides, p, S,
+                                                 True))
+            reject(f"roi_pool_bwd {tag} without ROI {drop} of image 0", short, g_p, "pool",
+                   dtype_name)
+            tk, tp = median_ms(fk), median_ms(fp, iters=3, warmup=1, inner=1)
+            log(f"  roi_pool_bwd {tag}: kernel {tk:.3f} ms plain {tp:.3f} ms")
+            # g read once, the boxes and levels, each level's gradient written
+            # once; a multiply-add per tap and channel of every sample
+            samples = B * n * p * p * S * S
+            nbytes = (grad.numel() * 4 + B * n * 20
+                      + sum(f.numel() for f in feats) * ELT[dtype_name])
+            tally(results, "roi_pool_bwd", "train", dtype_name).add(
+                tk, tp, nbytes, 2 * 4 * samples * 256, "float32", e, 1)
+        del feats
+        torch.cuda.empty_cache()
 
 
 def swin_stage_shapes(canvas=SWIN_CANVAS, batch=2, embed=192, depths=(2, 2, 18, 2),
@@ -985,8 +1062,9 @@ def phase_kernels(results):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for part in (kernels_generator, kernels_roi_pool, kernels_layer_norm,
-                 kernels_window_attention, kernels_window_gather, kernels_nms):
+    for part in (kernels_generator, kernels_roi_pool, kernels_roi_pool_backward,
+                 kernels_layer_norm, kernels_window_attention, kernels_window_gather,
+                 kernels_nms):
         part(results)
         torch.cuda.empty_cache()
     generator_levels()
@@ -1112,22 +1190,22 @@ def run_slice(results, path, make_cfg, canvas, per_batch, n_batches):
 # the pooler one launch a call; NMS one call per image for the proposals and
 # one for the detections (FCOS: one in all)
 R50_PER_BATCH = {"afi_chain": 3 * 16, "afi_upsample": 3 * 3, "roi_pool": 2,
-                 "afi_rdb": 0, "layer_norm": 0, "window_attention": 0, "window_gather": 0,
-                 "nms": 4}
+                 "roi_pool_bwd": 0, "afi_rdb": 0, "layer_norm": 0, "window_attention": 0,
+                 "window_gather": 0, "nms": 4}
 SWIN_PER_BATCH = {"afi_chain": 28 * 16, "afi_upsample": 28 * 3, "roi_pool": 3,
-                  "afi_rdb": 0, "layer_norm": 55, "window_attention": 24,
+                  "roi_pool_bwd": 0, "afi_rdb": 0, "layer_norm": 55, "window_attention": 24,
                   "window_gather": 0, "nms": 4}
 # with one dense block: the head conv + 5 dense convs a call, all launches
 # of the conv kernel, counted as afi_rdb
 RDB1_PER_BATCH = {"afi_chain": 0, "afi_upsample": 3 * 3, "roi_pool": 2,
-                  "afi_rdb": 3 * 6, "layer_norm": 0, "window_attention": 0,
+                  "roi_pool_bwd": 0, "afi_rdb": 3 * 6, "layer_norm": 0, "window_attention": 0,
                   "window_gather": 0, "nms": 4}
 # CenterMask: 6 BiFPN layers x 4 generator calls; one mask pool a batch. Under
 # ``windowed`` the pool is one window_gather launch (the batch's ROIs in one)
 # and one roi_pool launch over the 64 overflow slots per image, which runs
 # whether or not a ROI overflows (fixed shapes, no device synchronisation)
 CENTERMASK_PER_BATCH = {"afi_chain": 24 * 16, "afi_upsample": 24 * 3, "roi_pool": 1,
-                        "afi_rdb": 0, "layer_norm": 0, "window_attention": 0,
+                        "roi_pool_bwd": 0, "afi_rdb": 0, "layer_norm": 0, "window_attention": 0,
                         "window_gather": 0, "nms": 2}
 CENTERMASK_WINDOWED_PER_BATCH = dict(CENTERMASK_PER_BATCH, window_gather=1)
 
@@ -1410,6 +1488,12 @@ def phase_nms_ab(results):
            CENTERMASK_PER_BATCH["nms"])
 
 
+# the models' record_function ranges: their GPU spans (first to last kernel,
+# idle gaps included) are not device work
+RANGES = ("backbone", "afi_generator", "rpn", "roi_heads", "fcos_head", "fcos_decode",
+          "mask_pool", "mask_head")
+
+
 def profile_batch(model, batch):
     """One batch under torch.profiler (device kernel time by name and the
     device's busy share of the wall time; the trace is held against the
@@ -1422,10 +1506,6 @@ def profile_batch(model, batch):
     from afigan_tpu_torch.engine.inference import predict
     from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    # device-side events only: kernels and copies, not the record_function
-    # ranges' GPU spans (first to last kernel, idle gaps included)
-    ranges = ("backbone", "afi_generator", "rpn", "roi_heads", "fcos_head", "fcos_decode",
-              "mask_pool", "mask_head")
     for session in range(3):  # a trace that lost records is taken again, as in device_events
         reset_launches()
         torch.cuda.synchronize()
@@ -1435,7 +1515,7 @@ def profile_batch(model, batch):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.key not in ranges]
+                   if e.device_type == DeviceType.CUDA and e.key not in RANGES]
         held = sum(e.count for e in kernels if any(name in e.key for name in PORT_KERNELS))
         if held == device_kernels(LAUNCHES):
             break
@@ -1554,6 +1634,285 @@ def split_centermask(model, batch):
         (f"mask pool ({model.pooler_impl})", t["_pool>"] - t["_pool<"]),
         ("mask head", t["mask_head>"] - t["mask_head<"]),
         ("output", t["end"] - t["mask_head>"])])
+
+
+# ---------------------------------------------------------------------------
+# the stage-3 train step
+# ---------------------------------------------------------------------------
+
+STEP3_YAML = "step3_afigan_mask_rcnn_R_50_FPN_3x.yaml"
+# the YAML's 0.02 at 16 images, scaled to batch 2 by d2's linear rule
+TRAIN_LR = 0.0025
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# per step: the box and the mask pool, forward and backward; one RPN NMS call
+# an image; no generator kernel (training takes the unfused route)
+TRAIN_PER_STEP = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0, "roi_pool": 2,
+                  "roi_pool_bwd": 2, "layer_norm": 0, "window_attention": 0,
+                  "window_gather": 0, "nms": 2}
+
+
+def train_records(gen, n_img=2, hw=(800, 1333), n_obj=12):
+    """In-memory COCO-style records: random pixels, and from ``gen`` per
+    image ``n_obj`` boxes (xyxy, 24-400 px a side), classes in [0, 80) and an
+    octagon polygon inside each box."""
+    import torch
+
+    h, w = hw
+    recs = []
+    for i in range(n_img):
+        img = torch.randint(0, 256, (h, w, 3), generator=gen, dtype=torch.uint8).numpy()
+        anns = []
+        for _ in range(n_obj):
+            bw, bh = (24 + 376 * torch.rand(2, generator=gen)).tolist()
+            x0 = float(torch.rand(1, generator=gen)) * (w - bw)
+            y0 = float(torch.rand(1, generator=gen)) * (h - bh)
+            ang = np.arange(8) * np.pi / 4
+            poly = np.stack([x0 + bw / 2 * (1 + 0.95 * np.cos(ang)),
+                             y0 + bh / 2 * (1 + 0.95 * np.sin(ang))], 1).reshape(-1)
+            anns.append({"bbox": [x0, y0, x0 + bw, y0 + bh], "iscrowd": 0,
+                         "category_id": int(torch.randint(0, 80, (1,), generator=gen)),
+                         "segmentation": [poly.tolist()]})
+        recs.append({"image": img, "image_id": i + 1, "height": h, "width": w,
+                     "annotations": anns})
+    return recs
+
+
+def train_cfg(out_dir):
+    """The stage-3 YAML at full width (ResNet-50, FPN 256, AFI 3 RDBs, masks,
+    RPN 2000/1000, 512 + 128 ROIs an image), bf16, batch 2; the short side
+    800 so that every batch fills the 832x1344 canvas; warm-up off."""
+    from afigan_tpu_torch.config import cfg_from_yaml
+
+    cfg = cfg_from_yaml(STEP3_YAML)
+    cfg.merge_from_list([
+        "TPU.COMPUTE_DTYPE", "bfloat16", "SOLVER.IMS_PER_BATCH", "2",
+        "SOLVER.BASE_LR", str(TRAIN_LR), "SOLVER.WARMUP_ITERS", "0",
+        "INPUT.MIN_SIZE_TRAIN", "(800,)", "SEED", "0", "DATASETS.TRAIN", "('chip_smoke_train',)",
+        "DATASETS.TEST", "()", "OUTPUT_DIR", str(out_dir)])
+    return cfg
+
+
+def step_split(cfg, state, inputs, draws):
+    """One train step on the host clock with a synchronize after the
+    forward, the backward and the optimizer: (forward, backward, optimizer)
+    seconds."""
+    import torch
+
+    model, opt = state.model, state.optimizer
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = model(inputs["image"], inputs["image_sizes"], inputs["gt"], draws=draws)
+    total = sum(v for k, v in losses.items() if not k.startswith("diag_"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    total.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    opt.step()
+    state.scheduler.step()
+    torch.cuda.synchronize()
+    return t1 - t0, t2 - t1, time.perf_counter() - t2
+
+
+def phase_train(results):
+    """Stage-3 training at full width through ``TargetDetectorTrainer``: two
+    iterations of ``train()`` over an in-memory dataset (mapper, loader,
+    hooks, a checkpoint), then the main path: ``TRAIN_WARMUP`` + ``TRAIN_TIMED``
+    steps of the trainer's state on one repeated batch, launches counted per
+    step, every loss finite, ``total_loss`` lower at the last step than at
+    the first; one profiled step (device busy share) and one step split into
+    forward, backward and optimizer."""
+    import json as _json
+    import shutil
+    import types
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from afigan_tpu_torch.data import coco
+    from afigan_tpu_torch.data.dataset_mapper import DatasetMapper
+    from afigan_tpu_torch.data.loader import collate_batch, required_size_divisibility
+    from afigan_tpu_torch.engine.stage3 import batch_to_device, train_step
+    from afigan_tpu_torch.engine.trainers import TargetDetectorTrainer
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
+
+    out_dir = Path(__file__).resolve().parent / "output" / "chip_smoke_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    records = train_records(torch.Generator().manual_seed(7))
+    coco.register_dataset("chip_smoke_train", lambda: types.SimpleNamespace(records=records))
+    cfg = train_cfg(out_dir)
+    cfg.SOLVER.MAX_ITER = 2
+    cfg.SOLVER.CHECKPOINT_PERIOD = 2
+    mapper = DatasetMapper(cfg, is_train=True, seed=0)
+    batch = collate_batch([mapper(r) for r in records], cfg.TPU.IMAGE_BUCKETS,
+                          required_size_divisibility(cfg))
+    if tuple(batch["image"].shape[1:3]) != R50_CANVAS:
+        raise AssertionError(f"canvas {batch['image'].shape[1:3]} != {R50_CANVAS}")
+    t0 = time.perf_counter()
+    trainer = TargetDetectorTrainer(cfg, device="cuda")
+    inputs = batch_to_device(batch, "cuda")
+    n_bn = calibrate_frozen_bn(trainer.model, inputs["image"])
+    trainer.train()
+    lines = [_json.loads(x) for x in open(out_dir / "metrics.json")]
+    if not (out_dir / "model_0000002.pth").is_file() or not all(
+            np.isfinite(r["total_loss"]) for r in lines):
+        raise AssertionError(f"train(): no checkpoint or a non-finite loss: {lines}")
+    log(f"  train(): 2 iterations through the loader in {time.perf_counter() - t0:.1f} s "
+        f"(build included), total_loss {lines[-1]['total_loss']:.4f}, "
+        f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.2f}M params, "
+        f"{sum(p.numel() for p in trainer.model.parameters() if p.requires_grad) / 1e6:.2f}M "
+        f"trainable, {n_bn} FrozenBN statistics calibrated on the batch")
+    n_gt = int(inputs["gt"].valid.sum())
+    steps, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        t0 = time.perf_counter()
+        m = train_step(cfg, trainer.state, inputs, trainer.sampling)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            ms.append(1000 * (time.perf_counter() - t0))
+        steps.append(m)
+    counts = dict(LAUNCHES)
+    n = len(steps)
+    log(f"  train: launches in {n} steps " + _json.dumps(counts))
+    for k, per in TRAIN_PER_STEP.items():
+        if counts[k] != per * n:
+            raise AssertionError(f"train: {counts[k]} launches of {k} in {n} steps, expected "
+                                 f"{per} per step")
+    for i, m in enumerate(steps):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train step {i}: a non-finite loss {m}")
+    log("  train: total_loss by step " + " ".join(f"{m['total_loss']:.4f}" for m in steps))
+    log("  train: first / last step " + ", ".join(
+        f"{k} {steps[0][k]:.4f} / {steps[-1][k]:.4f}" for k in steps[0]))
+    if not steps[-1]["total_loss"] < steps[0]["total_loss"]:
+        raise AssertionError("train: total_loss did not fall over the repeated batch")
+    med = float(np.median(ms))
+    log(f"  train: {med:.1f} ms per step of 2 images (median of {len(ms)}; min {min(ms):.1f}, "
+        f"max {max(ms):.1f}), {2000 / med:.3f} images/s at the median, "
+        f"{R50_CANVAS[0]}x{R50_CANVAS[1]} canvas, bf16, lr {TRAIN_LR}, {n_gt} GT boxes; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for k in ("roi_pool", "roi_pool_bwd", "nms"):
+        results[k].setdefault("launches", {})["train"] = counts[k] // n
+
+    # one step under the profiler, its trace held against the wrappers' counts
+    for session in range(3):
+        reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_step(cfg, trainer.state, inputs, trainer.sampling)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.key not in RANGES]
+        held = sum(e.count for e in kernels if any(k in e.key for k in PORT_KERNELS))
+        if held == device_kernels(LAUNCHES):
+            break
+        log(f"  train profile: session {session + 1} of 3 holds {held} of the step's "
+            f"{device_kernels(LAUNCHES)} launches of the port's kernels")
+    busy = sum(e.self_device_time_total for e in kernels) / 1000.0
+    log(f"  train profile: wall {1000 * wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / (1000 * wall):.1f} % of wall)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} {e.key[:90]}")
+    for e in kernels:
+        if any(k in e.key for k in ("roi_pool", "cast_bf16", "nms_")):
+            log(f"  port kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} "
+                f"{e.key[:90]}")
+    fwd, bwd, opt = step_split(cfg, trainer.state, inputs, trainer.sampling)
+    tot = fwd + bwd + opt
+    log(f"  train split (host clock, synchronized): forward {1000 * fwd:.1f} ms "
+        f"({100 * fwd / tot:.1f} %), backward {1000 * bwd:.1f} ms ({100 * bwd / tot:.1f} %), "
+        f"optimizer {1000 * opt:.1f} ms ({100 * opt / tot:.1f} %)")
+    del trainer, inputs
+    torch.cuda.empty_cache()
+
+
+# the narrow stage-3 config of the JAX package's train-step tests
+NARROW_STAGE3 = [
+    "TPU.COMPUTE_DTYPE", "float32", "MODEL.MASK_ON", "True", "MODEL.FPN.OUT_CHANNELS", "64",
+    "MODEL.AFI.N_RDB", "1", "MODEL.AFI.GROWTH_RATE", "8",
+    "MODEL.RPN.PRE_NMS_TOPK_TRAIN", "64", "MODEL.RPN.POST_NMS_TOPK_TRAIN", "32",
+    "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "16", "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16"]
+
+
+def phase_train_card_vs_cpu(results):
+    """One stage-3 step of a narrow float32 model (TF32 off) with the same
+    weights (FrozenBN calibrated on the batch), batch and fixed subsample keys
+    on the card and on the CPU: the losses at 1e-4 relative, each trainable
+    gradient at 1e-3 of its largest entry (or 1e-5 of the largest of all). On
+    the card the pool's forward and backward kernels run inside."""
+    import torch
+
+    from afigan_tpu_torch.config import cfg_from_yaml
+    from afigan_tpu_torch.engine.stage3 import batch_to_device, init_stage3_state, loss_and_grads
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfg_from_yaml(STEP3_YAML)
+    cfg.merge_from_list(NARROW_STAGE3)
+    rng = np.random.RandomState(0)
+    b, h, w, m = 2, 64, 64, 4
+    boxes = np.zeros((b, m, 4), np.float32)
+    boxes[:, 0] = [8, 8, 40, 32]
+    boxes[:, 1] = [20, 24, 60, 56]
+    batch = {"image": (rng.rand(b, h, w, 3) * 255).astype(np.float32),
+             "image_sizes": np.asarray([[h, w]] * b, np.int32),
+             "gt": {"boxes": boxes, "classes": np.zeros((b, m), np.int32),
+                    "valid": np.array([[True, True, False, False]] * b),
+                    "masks": rng.rand(b, m, 28, 28).astype(np.float32)}}
+
+    def draws(shape, device):
+        keys = np.random.RandomState(1000 + shape[-1]).rand(2, shape[-1]).astype(np.float32)
+        return tuple(torch.from_numpy(np.broadcast_to(0.1 + 0.9 * k, shape).copy()).to(device)
+                     for k in keys)
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = init_stage3_state(cfg, dev, torch.Generator().manual_seed(1))
+        if dev == "cpu":
+            calibrate_frozen_bn(state.model, torch.from_numpy(batch["image"]))
+        else:
+            state.model.load_state_dict(out["cpu"][2])
+        reset_launches()
+        losses = loss_and_grads(cfg, state.model, batch_to_device(batch, dev), draws)
+        grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+        out[dev] = ({k: float(v) for k, v in losses.items()}, grads,
+                    {k: v.cpu() for k, v in state.model.state_dict().items()},
+                    dict(LAUNCHES))
+    (lc, gc, _, _), (lg, gg, _, launched) = out["cpu"], out["cuda"]
+    for k, want in lc.items():
+        np.testing.assert_allclose(lg[k], want, rtol=1e-4, atol=1e-7, err_msg=k)
+    if set(gg) != set(gc) or not gg:
+        raise AssertionError("card and CPU train different parameters")
+    # 1e-3 of each tensor's largest entry, or 1e-5 of the largest of all where
+    # a tensor's sums cancel to far below their terms
+    top = max(float(g.abs().max()) for g in gc.values())
+    worst = 0.0
+    for name, want in gc.items():
+        bound = max(1e-3 * float(want.abs().max()), 1e-5 * top)
+        err = float((gg[name] - want).abs().max())
+        worst = max(worst, err / bound)
+        if not err <= bound:
+            raise AssertionError(f"gradient {name}: {err} > {bound}")
+    for k, per in (("roi_pool", 2), ("roi_pool_bwd", 2), ("nms", b)):
+        if launched[k] != per:
+            raise AssertionError(f"train card_vs_cpu: {launched[k]} launches of {k}, "
+                                 f"expected {per}")
+    log("  train card_vs_cpu: losses " + ", ".join(f"{k} {lg[k]:.6f} (cpu {lc[k]:.6f})"
+                                                 for k in lc)
+        + f"; {len(gg)} trainable gradients, worst error {worst:.3f} of its bound; "
+        f"launches on the card {json.dumps({k: v for k, v in launched.items() if v})}")
+    torch.backends.cudnn.allow_tf32 = True
 
 
 # ---------------------------------------------------------------------------
@@ -1703,7 +2062,9 @@ def main():
     for name, phase in (("kernels", phase_kernels), ("slice", phase_slice),
                         ("slice_swin", phase_slice_swin),
                         ("slice_centermask", phase_slice_centermask),
-                        ("nms_ab", phase_nms_ab), ("card_vs_cpu", phase_card_vs_cpu)):
+                        ("nms_ab", phase_nms_ab), ("train", phase_train),
+                        ("card_vs_cpu", phase_card_vs_cpu),
+                        ("train_card_vs_cpu", phase_train_card_vs_cpu)):
         t0 = time.perf_counter()
         log(f"== phase {name}")
         phase(results)

@@ -481,3 +481,112 @@ def test_wrappers_raise_on_mixed_devices(dev):
     order = torch.arange(8, device=dev)[None]
     with pytest.raises(ValueError):
         nms_keep_sorted(boxes, torch.ones(1, 8, dtype=torch.bool), order, 0.5)
+
+
+# ---------------------------------------------------------------------------
+# the pool's backward and the forward-only kernels under autograd
+# ---------------------------------------------------------------------------
+
+# the backward's float32 sums meet in atomics, in an order that changes from
+# run to run: float32 at 1e-4 * max|plain| + 1e-5 as the forward; bfloat16
+# levels round once from the float32 sums, one bf16 step (2^-8) at most, so
+# 1e-2 * max|plain| compared through a float32 copy
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 0.0)}
+
+
+def _bwd_close(got, want, dtype):
+    rel, ab = BWD_TOL[dtype]
+    assert len(got) == len(want)
+    scale = max(float(w.float().abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= rel * scale + ab, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p", [7, 14])
+@pytest.mark.parametrize("c", [20, 160, 256, 257])
+def test_roi_pool_backward_kernel_matches_plain(dev, c, p, dtype):
+    rng = np.random.RandomState(5)
+    strides, feats, boxes = _pool_inputs(rng, dev, c, dtype)
+    boxes = torch.cat([boxes, _hard_rois(np.random.RandomState(c + p), dev)], dim=1)
+    lv = assign_boxes_to_levels(boxes, 2, 5)
+    grad = _t(rng, *boxes.shape[:2], p, p, c).to(dev)
+    n0 = LAUNCHES["roi_pool_bwd"]
+    got = rp.roi_pool_backward(feats, boxes, lv, grad, strides, p)
+    assert LAUNCHES["roi_pool_bwd"] == n0 + 1
+    want = rp.roi_pool_backward_plain(feats, boxes, lv, grad, strides, p)
+    _bwd_close(got, want, dtype)
+    # a gradient with one ROI's contribution left out must fail the bound
+    short = rp.roi_pool_backward_plain(feats, boxes[:, 1:], lv[:, 1:], grad[:, 1:],
+                                       strides, p)
+    with pytest.raises(AssertionError):
+        _bwd_close(got, short, dtype)
+
+
+def test_roi_pool_backward_without_rois(dev):
+    strides, feats, boxes = _pool_inputs(np.random.RandomState(6), dev, 32, torch.bfloat16)
+    empty = boxes[:, :0]
+    lv = assign_boxes_to_levels(empty, 2, 5)
+    grad = torch.zeros(2, 0, 7, 7, 32, device=dev)
+    n0 = LAUNCHES["roi_pool_bwd"]
+    got = rp.roi_pool_backward(feats, empty, lv, grad, strides, 7)
+    assert LAUNCHES["roi_pool_bwd"] == n0  # no launch
+    assert all(g.dtype == torch.bfloat16 and float(g.float().abs().max()) == 0.0 for g in got)
+
+
+def test_pooler_under_autograd_on_the_card(dev):
+    """``multilevel_roi_align_pallas`` under autograd: the forward and the
+    backward kernel, and level gradients equal to the plain gather's."""
+    from afigan_tpu_torch.ops.roi_align import multilevel_roi_align_pallas
+
+    strides, feats, boxes = _pool_inputs(np.random.RandomState(7), dev, 64)
+    grad = _t(np.random.RandomState(8), 2, 30, 7, 7, 64).to(dev)
+    leaves = [f.clone().requires_grad_(True) for f in feats]
+    n0, b0 = LAUNCHES["roi_pool"], LAUNCHES["roi_pool_bwd"]
+    out = multilevel_roi_align_pallas(leaves, boxes, strides, 7)
+    got = torch.autograd.grad(out, leaves, grad)
+    assert (LAUNCHES["roi_pool"], LAUNCHES["roi_pool_bwd"]) == (n0 + 1, b0 + 1)
+    plain = [f.clone().requires_grad_(True) for f in feats]
+    want = torch.autograd.grad(multilevel_roi_align(plain, boxes, strides, 7), plain, grad)
+    _bwd_close(got, want, torch.float32)
+
+
+def test_forward_only_kernels_raise_under_autograd(dev):
+    """A forward-only wrapper called under grad mode with an input that
+    requires grad raises instead of dropping the graph; under no_grad it runs."""
+    x = torch.randn(1, 8, 8, 16, device=dev, requires_grad=True)
+    w = torch.randn(16, 16, 3, 3, device=dev)
+    with pytest.raises(RuntimeError, match="autograd"):
+        ag.conv3x3([x], w)
+    with pytest.raises(RuntimeError, match="autograd"):
+        fused_layer_norm(x, torch.ones(16, device=dev), torch.zeros(16, device=dev))
+    strides, feats, boxes = _pool_inputs(np.random.RandomState(9), dev, 16)
+    feats[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        roi_pool(feats, boxes, assign_boxes_to_levels(boxes, 2, 5), strides, 7)
+    with torch.no_grad():
+        assert ag.conv3x3([x], w).shape == (1, 8, 8, 16)
+
+
+def test_generator_in_training_mode_gets_gradients_on_the_card(dev):
+    """In training mode under autograd the generator takes its unfused route
+    (cuDNN under autograd, as the JAX package trains it), launches none of the
+    generator kernels, and every weight gets a gradient; under inference_mode
+    the kernels run as before."""
+    from afigan_tpu_torch.models.afi import AFIGenerator
+
+    gen = AFIGenerator(32, 3, 8, device=dev)
+    gen.init_weights(torch.Generator().manual_seed(0))
+    x = _t(np.random.RandomState(13), 2, 13, 18, 32).to(dev)
+    before = {k: LAUNCHES[k] for k in ("afi_chain", "afi_upsample", "afi_rdb")}
+    gen.train()
+    y_train = gen(x)
+    y_train.square().sum().backward()
+    assert {k: LAUNCHES[k] for k in before} == before
+    assert all(p.grad is not None and float(p.grad.abs().sum()) > 0 for p in gen.parameters())
+    with torch.inference_mode():
+        y = gen(x)
+    assert LAUNCHES["afi_chain"] == before["afi_chain"] + 16
+    _close(y, y_train.detach())

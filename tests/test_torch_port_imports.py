@@ -31,7 +31,10 @@ SUBPACKAGES = ["afigan_tpu_torch." + m for m in (
     "models.swin", "models.bifpn", "models.cascade_roi_heads", "ops.kernels.layer_norm",
     "ops.kernels.window_attention", "ops.kernels.afi_generator", "ops.kernels.roi_pool",
     "ops.kernels.window_gather", "ops.roi_align", "models.fcos", "models.centermask",
-    "utils.converters", "run_net", "ops.kernels.nms", "ops.nms", "engine.testing")]
+    "utils.converters", "run_net", "ops.kernels.nms", "ops.nms", "engine.testing",
+    "ops.matcher", "ops.sampling", "ops.losses", "ops.image_list", "engine.solver",
+    "engine.stage3", "engine.events", "engine.train_loop", "engine.checkpoint",
+    "engine.trainers", "data.dataset_mapper", "stage3_train", "tools.frozen_bn")]
 
 
 def _violations(path):
