@@ -42,9 +42,7 @@ PTXAS_LOG: Dict[str, str] = {}
 
 # Launches of the hand-written kernels, by the JAX function each replaces.
 # A wrapper adds one where it launches a kernel, and nowhere else; "nms"
-# counts calls of its C entry (a mask and a reduce launch each), and
-# "roi_pool_bwd" calls of the pool's backward entry (the scatter, and a cast
-# for bfloat16 levels).
+# counts calls of its C entry (a mask and a reduce launch each).
 LAUNCHES: Dict[str, int] = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0,
                             "roi_pool": 0, "roi_pool_bwd": 0, "layer_norm": 0,
                             "window_attention": 0, "window_gather": 0, "nms": 0}
@@ -120,8 +118,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "roi_pool": {"roi_pool_forward": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, I, P],
-                     "roi_pool_backward": [P, P, P, P, P, I, P, P, P, P, ctypes.c_longlong,
-                                           I, I, I, I, I, I, I, I, I, P]},
+                     "roi_pool_backward": [P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, I,
+                                           I, I, I, P]},
         "afi_conv3x3": {
             "afi_conv3x3": [P, P, I, P, P, P, F, P, F, P, P, I, I, I, I, I, I, I, P],
             "afi_rdb_chain": [P, P, P, P, P, I, F, P, F, I, I, I, I, I, I, I, P]},

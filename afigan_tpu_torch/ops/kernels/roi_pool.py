@@ -12,10 +12,11 @@ the gather formulation of ``afigan_tpu/ops/roi_align.py::
 multilevel_roi_align`` / ``_bilinear_gather``, batched over images.
 
 ``roi_pool_backward`` gives the level maps' gradient (the boxes get none): on
-CUDA tensors ``csrc/roi_pool.cu::roi_pool_backward`` (float32 atomics into one
-zeroed buffer, cast once to the levels' dtype); on CPU tensors
-``roi_pool_backward_plain``, ``torch.autograd.grad`` through the gather (an
-indexed scatter). ``RoIPool`` joins the two under autograd.
+CUDA tensors ``csrc/roi_pool.cu::roi_pool_backward``, one launch in which each
+block gathers a tile of one level from the ROIs that reach it and writes it
+once in the levels' dtype (no atomics: the same bits on every run); on CPU
+tensors ``roi_pool_backward_plain``, ``torch.autograd.grad`` through the
+gather (an indexed scatter). ``RoIPool`` joins the two under autograd.
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ from ._build import LAUNCHES
 # ``csrc/roi_pool.cu::roi_pool_forward`` pick them from the shapes. Tests
 # and ``tools/kernel_sweep.py`` set them to time or check another split.
 SPLIT = (0, 0)
+# (tile rows, tile columns, channels a block) of the backward kernel; 0 lets
+# ``csrc/roi_pool.cu::roi_pool_backward`` pick them. Every split gives the
+# same bits; tests and ``tools/kernel_sweep.py roi_pool_bwd`` set them.
+BWD_SPLIT = (0, 0, 0)
 
 
 def _sample_coords(boxes, scales, p: int, s: int, aligned: bool):
@@ -208,25 +213,24 @@ def roi_pool_backward(features: Sequence[torch.Tensor], boxes, levels, grad,
     if grad.dtype != torch.float32 or tuple(grad.shape) != (b, r, p, p, c):
         raise ValueError(f"grad must be float32 {(b, r, p, p, c)}, got "
                          f"{tuple(grad.shape)} {grad.dtype}")
-    if b * r == 0:  # nothing to scatter: no launch
+    if b * r == 0:  # no ROI: no launch
         return [torch.zeros_like(f) for f in feats]
     sizes = [f.numel() for f in feats]
     offs = [sum(sizes[:i]) for i in range(len(feats))]
-    acc = torch.zeros(sum(sizes), device=f0.device, dtype=torch.float32)
-    out = acc if dcode == 0 else torch.empty(sum(sizes), device=f0.device, dtype=f0.dtype)
+    # every element is written by the kernel: no fill
+    out = torch.empty(sum(sizes), device=f0.device, dtype=f0.dtype)
     g = grad.contiguous()
     bx = boxes.contiguous()
     lv = levels.to(torch.int32).contiguous()
     nl = len(feats)
     lib = _build.load("roi_pool")
     rc = lib.roi_pool_backward(
-        acc.data_ptr(), (ctypes.c_longlong * nl)(*offs),
+        out.data_ptr(), (ctypes.c_longlong * nl)(*offs),
         (ctypes.c_int * nl)(*[int(f.shape[1]) for f in feats]),
         (ctypes.c_int * nl)(*[int(f.shape[2]) for f in feats]),
         (ctypes.c_float * nl)(*[1.0 / s for s in strides]),
-        nl, bx.data_ptr(), lv.data_ptr(), g.data_ptr(),
-        None if dcode == 0 else out.data_ptr(), sum(sizes), b * r, r, c, p,
-        sampling_ratio, int(bool(aligned)), dcode, *SPLIT, _build.stream_ptr())
+        nl, bx.data_ptr(), lv.data_ptr(), g.data_ptr(), b, r, c, p,
+        sampling_ratio, int(bool(aligned)), dcode, *BWD_SPLIT, _build.stream_ptr())
     _build.check(rc, "roi_pool_backward")
     LAUNCHES["roi_pool_bwd"] += 1
     return [out[o:o + n].view(f.shape) for o, n, f in zip(offs, sizes, feats)]

@@ -8,7 +8,8 @@
 Phases, always all (any failure exits non-zero; nothing falls back to the
 CPU):
   1. build    compile every CUDA kernel from ``afigan_tpu_torch/csrc`` (one nvcc
-              per source, in parallel); print the card and its power limit
+              per source, in parallel); print the card and its power limit; the
+              pool's backward must hold no global atomic in its SASS
   2. kernels  each of the nine kernels against its plain PyTorch version at
               the shapes of the paths that run it (the generator and the pooler
               at 256 and at 160 channels), float32 with TF32 off and
@@ -33,7 +34,9 @@ CPU):
               keep mask with one kept box flipped must fail that check. The
               pool's backward at the train step's shapes (box pool 2 x 512 ROIs
               at P 7, mask pool 2 x 128 at P 14, C 256) against autograd through
-              the plain gather; the plain gradient without one ROI must fail
+              the plain gather, the same bits on a second run, by events (its
+              device time is read in phase 7); the plain gradient without one
+              ROI must fail
   3. slice    Mask R-CNN R-50-FPN + AF interpolator at full width (bf16, random
               weights from a seeded torch.Generator) through ``build_model``
               and ``predict`` on random-pixel batches of an 832x1344 canvas;
@@ -71,7 +74,10 @@ CPU):
               repeated batch (launches per step asserted: 2 pool forwards, 2
               pool backwards, 2 NMS, no generator kernel; losses finite and
               falling), ms per step, images/s, peak memory, one profiled step
-              and a forward / backward / optimizer split
+              (the pool's backward's device time in it) and a forward /
+              backward / optimizer split; then the pool's backward on one
+              step's own ROIs and gradients, as in phase 2 (the JSON line's
+              ``roi_pool_bwd`` entry)
   8. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
               and the CPU (plain versions) on the same weights; detections must
               agree at the golden-regression tolerances. The R-50 model under
@@ -460,15 +466,13 @@ def kernels_generator(results):
 
 PORT_KERNELS = ("afi::", "roi_pool_kernel", "layer_norm_kernel", "window_attention_",
                 "window_gather_kernel", "nms_mask_kernel", "nms_reduce_kernel",
-                "roi_pool_bwd_kernel", "cast_bf16_kernel")
+                "roi_pool_bwd_kernel")
 
 
 def device_kernels(counts):
     """The device kernels that the wrappers' launch counts stand for: one
-    each, but two for a call of the NMS entry (its mask and its reduce) and
-    two for a call of the pool's backward on bfloat16 levels (the scatter and
-    the cast: every backward this script profiles is bfloat16)."""
-    return sum(counts.values()) + counts.get("nms", 0) + counts.get("roi_pool_bwd", 0)
+    each, but two for a call of the NMS entry (its mask and its reduce)."""
+    return sum(counts.values()) + counts.get("nms", 0)
 
 
 def device_events(fn, expected, record_shapes=False, tries=3):
@@ -632,23 +636,123 @@ def kernels_roi_pool(results):
                 tk, tp, nbytes, 2 * 4 * samples * c, "float32", e, count)
 
 
-def kernels_roi_pool_backward(results):
-    """The pool's backward at the stage-3 train step's shapes: the box pool
-    (512 sampled ROIs an image, P = 7) and the mask pool (128 foreground ROIs
-    an image, P = 14) over p2-p5 of the 832x1344 canvas, against
-    ``torch.autograd.grad`` through the plain gather (summed in float32). The
-    kernel's float32 atomics add in a run-dependent order: a tolerance, never
-    bit equality. The bound must reject the plain gradient without the
-    contribution of one ROI (the smallest: its samples pile onto the fewest
-    taps)."""
+def bwd_without_atomics(build):
+    """The pool's backward gathers: no global atomic or reduction (``ATOMG``,
+    ``RED``) in the SASS of any instance of its kernel."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.lib_path("roi_pool"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if "roi_pool_bwd_kernel" in f.split("\n", 1)[0]]
+    ops = [ln.strip() for f in funcs for ln in f.splitlines()
+           if " RED" in ln or "ATOMG" in ln or "ATOM." in ln]
+    log(f"  roi_pool_bwd_kernel: {len(funcs)} instances, {len(ops)} global atomics in SASS")
+    if not funcs or ops:
+        raise AssertionError(f"roi_pool_bwd_kernel SASS: {len(funcs)} instances, {ops[:3]}")
+
+
+def check_pool_backward(results, path, tag, feats, boxes, lv, grad, strides, p, dtype_name,
+                        count=1):
+    """One call of the pool's backward against ``torch.autograd.grad``
+    through the plain gather (summed in float32): the error, the same bits on
+    a second run, the bound's rejection of the plain gradient without one ROI,
+    the time by events of the kernel and the plain version, and the tally of
+    ``path``. On ``synthetic`` boxes the ROI left out is image 0's smallest
+    (its samples pile onto the fewest taps), and the bound must fail it. On
+    the train step's ROIs (``path`` ``train``) six candidates are left out in
+    turn, the smallest ROI with a gradient and the five with the largest
+    gradient over the fewest pixels of their level: each is logged with its
+    error over the bound, and over a bound taken from its level's largest
+    entry alone; the bound must fail the largest. The bound is relative to
+    the largest entry of all levels, so a ROI whose own gradient lies far
+    below it can pass (PERF.md, section 7).
+    Its device time is read in phase ``train``'s profiled step: no profiler
+    session here (a process whose profiler started before the other kernel
+    checks lost records in every later short session on the card, the
+    generator levels' included)."""
     import torch
 
     from afigan_tpu_torch.ops.kernels.roi_pool import roi_pool_backward, roi_pool_backward_plain
+
+    args = (feats, boxes, lv, grad, strides, p, 2, True)
+    fk = lambda: roi_pool_backward(*args)  # noqa: E731
+    fp = lambda: roi_pool_backward_plain(*args)  # noqa: E731
+
+    def flat(gs):
+        return torch.cat([g.float().flatten() for g in gs])
+
+    got, want = fk(), fp()
+    again = fk()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    g_k, g_p = flat(got), flat(want)
+    e = compare(f"roi_pool_bwd {tag}", g_k, g_p, "pool", dtype_name)
+    if not same:
+        raise AssertionError(f"roi_pool_bwd {tag}: two runs differ in their bits")
+    area = ((boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])).clamp(min=1)
+
+    def without(k):  # the plain gradient without ROI k (of the flattened batch)
+        left_out = grad.clone()
+        left_out.view(-1, *grad.shape[2:])[k] = 0.0
+        return roi_pool_backward_plain(feats, boxes, lv, left_out, strides, p)
+
+    def name(k):
+        img, roi = divmod(k, grad.shape[1])
+        return f"roi_pool_bwd {tag} without ROI {roi} of image {img}"
+
+    if path == "synthetic":
+        drop = int(area[0].argmin())
+    else:
+        rel, ab = TOL[("pool", dtype_name)]
+        peak = grad.abs().flatten(2).amax(-1)
+        scale = torch.tensor([1.0 / s for s in strides], device=boxes.device)[lv]
+        score = (peak / (area * scale * scale).clamp(min=1)).flatten()
+        small = int(torch.where(peak.flatten() > 0, area.flatten(),
+                                torch.full_like(score, float("inf"))).argmin())
+        cands = list(dict.fromkeys([small] + score.topk(min(5, score.numel())).indices.tolist()))
+
+        def over(got_, want_):  # max |got - want| over the bound from want's largest entry
+            err, bound = float((got_ - want_).abs().max()), rel * float(want_.abs().max()) + ab
+            return err / bound if bound > 0 else (float("inf") if err > 0 else 0.0)
+
+        worst, drop = -1.0, None
+        for k in cands:
+            short = without(k)
+            r_all = over(flat(short), g_p)
+            r_lvl = max(over(a.float(), b.float()) for a, b in zip(short, want))
+            log(f"  {name(k)} ({float(area.flatten()[k]):.0f} px^2 at p{2 + int(lv.flatten()[k])}"
+                f"{', the smallest' if k == small else ''}): {r_all:.2f}x the bound, "
+                f"{r_lvl:.2f}x a bound from its level's largest entry")
+            if r_all > worst:
+                worst, drop = r_all, k
+    reject(name(drop), flat(without(drop)), g_p, "pool", dtype_name)
+    tk, tp = median_ms(fk), median_ms(fp, iters=3, warmup=1, inner=1)
+    log(f"  roi_pool_bwd {tag}: kernel {tk:.3f} ms plain {tp:.3f} ms by events; two runs "
+        "the same bits")
+    # g read once, the boxes and levels, each level's gradient written once;
+    # a multiply-add per tap and channel of every sample
+    samples = grad.shape[0] * grad.shape[1] * p * p * 2 * 2  # S * S a bin
+    c = grad.shape[-1]
+    nbytes = (grad.numel() * 4 + boxes.shape[0] * boxes.shape[1] * 20
+              + sum(f.numel() for f in feats) * ELT[dtype_name])
+    tally(results, "roi_pool_bwd", path, dtype_name).add(
+        tk, tp, nbytes, 2 * 4 * samples * c, "float32", e, count)
+
+
+def kernels_roi_pool_backward(results):
+    """The pool's backward at the stage-3 train step's shapes, on boxes that
+    are not the step's (``_boxes``' log-uniform sizes; phase ``train`` adds
+    the step's own ROIs): the box pool (512 ROIs an image, P = 7) and the mask
+    pool (128 an image, P = 14) over p2-p5 of the 832x1344 canvas."""
+    import torch
+
     from afigan_tpu_torch.ops.roi_align import assign_boxes_to_levels
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
-    B, S, strides = 2, 2, (4, 8, 16, 32)
+    B, strides = 2, (4, 8, 16, 32)
     for dtype_name in DTYPES:
         dt = getattr(torch, dtype_name)
         feats = [torch.randn((B, R50_CANVAS[0] // s, R50_CANVAS[1] // s, 256),
@@ -657,36 +761,36 @@ def kernels_roi_pool_backward(results):
             boxes = _boxes(B, n, R50_CANVAS, gen, dev)
             lv = assign_boxes_to_levels(boxes, 2, 5)
             grad = torch.randn((B, n, p, p, 256), generator=gen).to(dev)
-            args = (feats, boxes, lv, grad, strides, p, S, True)
-            fk = lambda: roi_pool_backward(*args)  # noqa: E731
-            fp = lambda: roi_pool_backward_plain(*args)  # noqa: E731
-
-            def flat(gs):
-                return torch.cat([g.float().flatten() for g in gs])
-
-            g_k, g_p = flat(fk()), flat(fp())
-            torch.cuda.synchronize()
-            tag = f"{dtype_name} train C=256 P={p} N={B}x{n}"
-            e = compare(f"roi_pool_bwd {tag}", g_k, g_p, "pool", dtype_name)
-            area = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
-            drop = int(area[0].argmin())
-            left_out = grad.clone()
-            left_out[0, drop] = 0.0
-            short = flat(roi_pool_backward_plain(feats, boxes, lv, left_out, strides, p, S,
-                                                 True))
-            reject(f"roi_pool_bwd {tag} without ROI {drop} of image 0", short, g_p, "pool",
-                   dtype_name)
-            tk, tp = median_ms(fk), median_ms(fp, iters=3, warmup=1, inner=1)
-            log(f"  roi_pool_bwd {tag}: kernel {tk:.3f} ms plain {tp:.3f} ms")
-            # g read once, the boxes and levels, each level's gradient written
-            # once; a multiply-add per tap and channel of every sample
-            samples = B * n * p * p * S * S
-            nbytes = (grad.numel() * 4 + B * n * 20
-                      + sum(f.numel() for f in feats) * ELT[dtype_name])
-            tally(results, "roi_pool_bwd", "train", dtype_name).add(
-                tk, tp, nbytes, 2 * 4 * samples * 256, "float32", e, 1)
+            check_pool_backward(results, "synthetic", f"{dtype_name} synthetic C=256 P={p} "
+                                f"N={B}x{n}", feats, boxes, lv, grad, strides, p, dtype_name)
         del feats
         torch.cuda.empty_cache()
+
+
+def check_train_pool_backward(results, calls):
+    """The pool's backward on the ROIs and gradients of one train step (its
+    box and mask pools), in bf16 as the step runs it and in float32 on the
+    same values: the JSON line's ``roi_pool_bwd`` entry. The step's gradient
+    (a largest entry near 1e-5: the losses average over the ROIs) is scaled to
+    a largest entry of 1; the backward is linear in it, and the float32 bound's
+    absolute term (1e-5) would otherwise pass any answer."""
+    import torch
+
+    if sorted(c[5] for c in calls) != [7, 14]:
+        raise AssertionError(f"train: pool backward calls at P {[c[5] for c in calls]}")
+    for feats, boxes, lv, grad, strides, p, *_ in calls:
+        hist = torch.bincount(lv.flatten(), minlength=len(feats)).tolist()
+        n_live = int((grad.flatten(2).abs().amax(-1) > 0).sum())
+        top = float(grad.abs().max())
+        log(f"  train step's pool P={p}: {tuple(boxes.shape[:2])} ROIs, by level {hist}, "
+            f"{n_live} with a gradient, its largest entry {top:.3e}")
+        grad = grad / top
+        for dtype_name in DTYPES:
+            dt = getattr(torch, dtype_name)
+            fs = [f.detach().to(dt) for f in feats]
+            check_pool_backward(results, "train", f"{dtype_name} train step "
+                                f"C={grad.shape[-1]} P={p} N={boxes.shape[0]}x{boxes.shape[1]}",
+                                fs, boxes, lv, grad, strides, p, dtype_name)
 
 
 def swin_stage_shapes(canvas=SWIN_CANVAS, batch=2, embed=192, depths=(2, 2, 18, 2),
@@ -1738,6 +1842,8 @@ def phase_train(results):
     from afigan_tpu_torch.engine.trainers import TargetDetectorTrainer
     from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
+    from afigan_tpu_torch.tools.kernel_sweep import (POOL_CALLS, capture_pool_backward,
+                                                     save_pool_calls)
 
     out_dir = Path(__file__).resolve().parent / "output" / "chip_smoke_train"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1822,15 +1928,29 @@ def phase_train(results):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} {e.key[:90]}")
     for e in kernels:
-        if any(k in e.key for k in ("roi_pool", "cast_bf16", "nms_")):
+        if any(k in e.key for k in ("roi_pool", "nms_")):
             log(f"  port kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} "
                 f"{e.key[:90]}")
+    # the pool's backward launch by launch, in the order autograd ran them
+    bwd = [e.self_device_time_total / 1000.0 for e in prof.events()
+           if e.device_type == DeviceType.CUDA and "roi_pool_bwd_kernel" in e.name]
+    log(f"  train profile: the pool's backward {sum(bwd):.3f} ms on the device in "
+        f"{len(bwd)} launches ({', '.join(f'{t:.3f}' for t in bwd)} ms; "
+        f"{100 * sum(bwd) / max(busy, 1e-9):.1f} % of the busy time)")
     fwd, bwd, opt = step_split(cfg, trainer.state, inputs, trainer.sampling)
     tot = fwd + bwd + opt
     log(f"  train split (host clock, synchronized): forward {1000 * fwd:.1f} ms "
         f"({100 * fwd / tot:.1f} %), backward {1000 * bwd:.1f} ms ({100 * bwd / tot:.1f} %), "
         f"optimizer {1000 * opt:.1f} ms ({100 * opt / tot:.1f} %)")
+    # the pool's backward on this step's own ROIs and gradients, saved for
+    # ``kernel_sweep.py roi_pool_bwd``
+    calls = capture_pool_backward(
+        lambda: train_step(cfg, trainer.state, inputs, trainer.sampling))
+    save_pool_calls(calls, POOL_CALLS)
+    log(f"  train: the step's {len(calls)} pool backward calls saved to {POOL_CALLS}")
     del trainer, inputs
+    check_train_pool_backward(results, calls)
+    del calls
     torch.cuda.empty_cache()
 
 
@@ -2050,6 +2170,7 @@ def main():
         for line in txt.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    bwd_without_atomics(_build)
 
     if "--generator-levels" in sys.argv[1:]:
         # only the per-level device time of a generator call (also runs on a

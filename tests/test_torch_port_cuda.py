@@ -487,10 +487,11 @@ def test_wrappers_raise_on_mixed_devices(dev):
 # the pool's backward and the forward-only kernels under autograd
 # ---------------------------------------------------------------------------
 
-# the backward's float32 sums meet in atomics, in an order that changes from
-# run to run: float32 at 1e-4 * max|plain| + 1e-5 as the forward; bfloat16
-# levels round once from the float32 sums, one bf16 step (2^-8) at most, so
-# 1e-2 * max|plain| compared through a float32 copy
+# the backward sums in float32 in another order than autograd's scatter
+# (hits by ROI, then bins): float32 at 1e-4 * max|plain| + 1e-5 as the
+# forward; bfloat16 levels round once from the float32 sums, one bf16 step
+# (2^-8) at most, so 1e-2 * max|plain| compared through a float32 copy. The
+# order is fixed: two runs, and every launch split, give the same bits
 BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 0.0)}
 
 
@@ -518,11 +519,107 @@ def test_roi_pool_backward_kernel_matches_plain(dev, c, p, dtype):
     assert LAUNCHES["roi_pool_bwd"] == n0 + 1
     want = rp.roi_pool_backward_plain(feats, boxes, lv, grad, strides, p)
     _bwd_close(got, want, dtype)
+    _same_bits(got, rp.roi_pool_backward(feats, boxes, lv, grad, strides, p))
     # a gradient with one ROI's contribution left out must fail the bound
     short = rp.roi_pool_backward_plain(feats, boxes[:, 1:], lv[:, 1:], grad[:, 1:],
                                        strides, p)
     with pytest.raises(AssertionError):
         _bwd_close(got, short, dtype)
+
+
+def _same_bits(got, again):
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _bwd_hard_rois(rng, dev):
+    """(2, 62, 4) ROIs on a 128x192 canvas (p2-p5: 32x48 down to 4x6) and
+    their levels: a whole-map ROI on each level (larger than a tile), 8:1
+    and 1:8 ROIs, tiny ROIs whose samples all fall in one pixel, ROIs partly
+    and wholly outside the level, and 40 ROIs piled on one p2 tile."""
+    boxes = [[0, 0, 192, 128]] * 4 + [
+        [10, 40, 170, 60], [80, 0, 96, 128], [50.2, 50.1, 50.9, 50.8], [7.1, 3.3, 7.4, 3.5],
+        [-30, -20, 40, 30], [150, 100, 230, 160], [-60, 10, -10, 50], [200, 140, 260, 190],
+        [60, -90, 120, -40], [185, 120, 200, 135]]
+    levels = [0, 1, 2, 3] + [0, 0, 0, 0, 0, 1, 0, 1, 2, 0]
+    for k in range(40):
+        boxes.append([100 + 0.1 * k, 60 + 0.05 * k, 112 + 0.1 * k, 70 + 0.05 * k])
+        levels.append(0)
+    b = np.asarray(boxes, np.float32)[None] + 0.1 * rng.rand(2, len(boxes), 4)
+    lv = np.broadcast_to(np.asarray(levels, np.int64), (2, len(boxes)))
+    return (torch.from_numpy(b.astype(np.float32)).to(dev),
+            torch.from_numpy(lv.copy()).to(dev))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p", [7, 14])
+@pytest.mark.parametrize("c", [20, 160, 256, 257])
+def test_roi_pool_backward_hard_rois(dev, c, p, dtype):
+    """ROIs larger than a tile (a whole-map ROI on every level, elongated
+    8:1), tiny ones, ROIs partly and wholly outside the level and many piled
+    on one tile: the plain version's gradient, the same bits twice, and zeros
+    where no ROI reaches (the wholly outside ROIs add nothing)."""
+    rng = np.random.RandomState(c + 3 * p)
+    strides, feats, _ = _pool_inputs(rng, dev, c, dtype)
+    boxes, lv = _bwd_hard_rois(rng, dev)
+    grad = _t(rng, *boxes.shape[:2], p, p, c).to(dev)
+    got = rp.roi_pool_backward(feats, boxes, lv, grad, strides, p)
+    want = rp.roi_pool_backward_plain(feats, boxes, lv, grad, strides, p)
+    _bwd_close(got, want, dtype)
+    _same_bits(got, rp.roi_pool_backward(feats, boxes, lv, grad, strides, p))
+    outside = torch.zeros_like(grad)
+    outside[:, 10:13] = grad[:, 10:13]
+    assert all(float(g.float().abs().max()) == 0.0 for g in rp.roi_pool_backward(
+        feats, boxes, lv, outside, strides, p))
+
+
+def _bwd_threads(split, vec):
+    th, tw, cc = split
+    return th * (tw // (8 if tw % 8 == 0 else 4)) * (cc // vec)
+
+
+@pytest.mark.parametrize("c,p", [(256, 7), (256, 14), (160, 14), (20, 7), (257, 7)])
+def test_roi_pool_backward_splits_agree(dev, monkeypatch, c, p):
+    """Every split that ``tools/kernel_sweep.py roi_pool_bwd`` sweeps (the
+    scalar path at C = 257 takes those whose block stays within 256
+    threads), forced through ``BWD_SPLIT``, gives the default's bits, which
+    are the plain version's gradient."""
+    from afigan_tpu_torch.tools.kernel_sweep import bwd_splits
+
+    rng = np.random.RandomState(11)
+    strides, feats, boxes = _pool_inputs(rng, dev, c, torch.bfloat16)
+    hard, hard_lv = _bwd_hard_rois(rng, dev)
+    boxes = torch.cat([boxes, hard], dim=1)
+    lv = torch.cat([assign_boxes_to_levels(boxes[:, :30], 2, 5), hard_lv], dim=1)
+    grad = _t(rng, *boxes.shape[:2], p, p, c).to(dev)
+    want = rp.roi_pool_backward(feats, boxes, lv, grad, strides, p)
+    _bwd_close(want, rp.roi_pool_backward_plain(feats, boxes, lv, grad, strides, p),
+               torch.bfloat16)
+    vec = 4 if c % 4 == 0 else 1
+    splits = [sp for sp in bwd_splits() if _bwd_threads(sp, vec) <= 256]
+    assert len(splits) >= 10
+    for split in splits:
+        monkeypatch.setattr(rp, "BWD_SPLIT", split)
+        _same_bits(want, rp.roi_pool_backward(feats, boxes, lv, grad, strides, p))
+    monkeypatch.setattr(rp, "BWD_SPLIT", (8, 6, 128))  # tile columns not a multiple of 4
+    with pytest.raises(RuntimeError, match="roi_pool_backward"):
+        rp.roi_pool_backward(feats, boxes, lv, grad, strides, p)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_roi_pool_backward_unaligned_grad(dev, dtype):
+    """A gradient that is a view at an odd element offset takes the scalar
+    path (no 16-byte loads), with the same result as the aligned copy."""
+    rng = np.random.RandomState(12)
+    strides, feats, boxes = _pool_inputs(rng, dev, 32, dtype)
+    lv = assign_boxes_to_levels(boxes, 2, 5)
+    grad = _t(rng, *boxes.shape[:2], 7, 7, 32).to(dev)
+    buf = torch.empty(grad.numel() + 1, device=dev)
+    buf[1:] = grad.flatten()
+    view = buf[1:].view(grad.shape)
+    assert view.data_ptr() % 16 != 0
+    got = rp.roi_pool_backward(feats, boxes, lv, view, strides, 7)
+    _bwd_close(got, rp.roi_pool_backward_plain(feats, boxes, lv, grad, strides, 7), dtype)
+    _bwd_close(got, rp.roi_pool_backward(feats, boxes, lv, grad, strides, 7), dtype)
 
 
 def test_roi_pool_backward_without_rois(dev):

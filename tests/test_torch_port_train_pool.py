@@ -68,3 +68,55 @@ def test_backward_entry_on_the_cpu_is_the_plain_version():
     assert LAUNCHES["roi_pool_bwd"] == n0
     want = roi_pool_backward_plain(tf, tb, lv, torch.tensor(grad), STRIDES, 7)
     assert all(g.dtype == torch.bfloat16 and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_backward_splits_fit_the_launcher(monkeypatch):
+    """Every split that ``tools/kernel_sweep.py roi_pool_bwd`` sweeps (and the
+    CUDA tests force) is one the launcher takes on the vector path: a block of
+    a multiple of 32 threads, at most 256. On CPU tensors the split is not
+    read: the plain version runs."""
+    from afigan_tpu_torch.ops.kernels import roi_pool as rp
+    from afigan_tpu_torch.tools.kernel_sweep import bwd_splits
+
+    splits = bwd_splits()
+    assert len(splits) == len(set(splits)) >= 20
+    for th, tw, cc in splits:
+        threads = th * (tw // (8 if tw % 8 == 0 else 4)) * (cc // 4)
+        assert tw % 4 == 0 and cc % 4 == 0 and threads % 32 == 0 and threads <= 256
+    feats, boxes, grad = _inputs(8, 7, seed=2)
+    tf = [torch.tensor(f) for f in feats]
+    tb = torch.tensor(boxes)
+    lv = assign_boxes_to_levels(tb, 2, 5)
+    want = roi_pool_backward_plain(tf, tb, lv, torch.tensor(grad), STRIDES, 7)
+    monkeypatch.setattr(rp, "BWD_SPLIT", splits[0])
+    got = roi_pool_backward(tf, tb, lv, torch.tensor(grad), STRIDES, 7)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_pool_calls_round_trip(tmp_path):
+    """``tools/kernel_sweep.py roi_pool_bwd`` sweeps the pool's backward calls
+    of one train step as ``chip_smoke.py`` captures and saves them: one call
+    under autograd is recorded with its arguments, and after saving and
+    loading (zero level maps of the saved shapes) the backward on them gives
+    the levels' gradient that autograd gave."""
+    from afigan_tpu_torch.tools.kernel_sweep import (capture_pool_backward, load_pool_calls,
+                                                     save_pool_calls)
+
+    feats, boxes, grad = _inputs(8, 7, seed=3)
+    leaves = [torch.tensor(f).to(torch.bfloat16).requires_grad_(True) for f in feats]
+
+    def step():
+        out = multilevel_roi_align_pallas(leaves, torch.tensor(boxes), STRIDES, 7)
+        out.backward(torch.tensor(grad))
+
+    calls = capture_pool_backward(step)
+    assert len(calls) == 1 and tuple(calls[0][4:]) == (STRIDES, 7, 2, True)
+    save_pool_calls(calls, tmp_path / "calls.pt")
+    (lf, lb, llv, lg, *rest), = load_pool_calls(tmp_path / "calls.pt", "cpu")
+    assert [f.shape for f in lf] == [f.shape for f in leaves]
+    assert all(f.dtype == torch.bfloat16 and not f.any() for f in lf)
+    assert torch.equal(lb, calls[0][1]) and torch.equal(lg, torch.tensor(grad))
+    got = roi_pool_backward(lf, lb, llv, lg, *rest)
+    assert all(torch.equal(g, f.grad) for g, f in zip(got, leaves))
+    (lf32, *_), = load_pool_calls(tmp_path / "calls.pt", "cpu", torch.float32)
+    assert all(f.dtype == torch.float32 for f in lf32)
