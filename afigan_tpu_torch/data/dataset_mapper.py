@@ -1,6 +1,6 @@
 """Training mapper: a dataset record → one sample's numpy arrays (the port's
-own copy of ``afigan_tpu/data/dataset_mapper.py``, stage 3: one scale, no
-crop or colour jitter).
+own copy of ``afigan_tpu/data/dataset_mapper.py``, no crop or colour
+jitter).
 
 One sampled transform (resize + flip) per record, from the mapper's
 ``np.random.RandomState(seed)`` in the JAX package's order, and the GT padded
@@ -9,11 +9,17 @@ coords, clipped, the degenerate ones dropped before the cap) with classes and
 a validity mask, and with masks on, each instance rasterised once into a
 (``TPU.MASK_CANVAS``)^2 canvas covering its transformed box (the model
 crop-resizes it to the mask head's size).
+
+With ``dual_scale`` (stages 1-2) the same transform is replayed at half scale
+(``image_x0.5``) and, for training, ``gt_x0.5`` takes the full-resolution
+pass's instance selection, so that the slots of both scales hold the same
+instances and share their mask canvases (box-relative, so scale-free); the
+validity flags are those of the half scale.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -53,7 +59,7 @@ class DatasetMapper:
     """record → {image (unpadded, uint8), gt {boxes, classes, valid[, masks]},
     sizes, transform}."""
 
-    def __init__(self, cfg, is_train: bool = True, seed: int = 0):
+    def __init__(self, cfg, is_train: bool = True, seed: int = 0, dual_scale: bool = False):
         if not is_train:
             raise ValueError("the eval mapper is data/loader.py::map_record")
         if cfg.INPUT.CROP.ENABLED or cfg.INPUT.COLOR_JITTER.ENABLED or cfg.MODEL.KEYPOINT_ON:
@@ -66,6 +72,7 @@ class DatasetMapper:
         self.max_gt = cfg.TPU.MAX_GT_BOXES
         self.mask_canvas = cfg.TPU.MASK_CANVAS
         self.mask_on = cfg.MODEL.MASK_ON
+        self.dual_scale = dual_scale
         self.rng = np.random.RandomState(seed)
 
     def __call__(self, record: Dict) -> Dict:
@@ -75,11 +82,20 @@ class DatasetMapper:
         h, w = img.shape[:2]
         tf = sample_train_transform(self.rng, h, w, self.min_sizes, self.max_size,
                                     self.sampling)
-        return {"image": tf.apply_image(img), "image_id": record.get("image_id", 0),
-                "orig_height": h, "orig_width": w, "transform": tf,
-                "gt": self._make_gt(record, tf)}
+        gt, sel = self._make_gt(record, tf)
+        out = {"image": tf.apply_image(img), "image_id": record.get("image_id", 0),
+               "orig_height": h, "orig_width": w, "transform": tf, "gt": gt}
+        if self.dual_scale:
+            half = tf.at_scale(0.5)
+            out["image_x0.5"] = half.apply_image(img)
+            out["gt_x0.5"], _ = self._make_gt(record, half, share_masks=gt, sel=sel)
+        return out
 
-    def _make_gt(self, record: Dict, tf: ResolvedTransform) -> Dict:
+    def _make_gt(self, record: Dict, tf: ResolvedTransform, share_masks: Optional[Dict] = None,
+                 sel=None):
+        """(padded GT, the selected instances' indices); with ``sel``, those
+        instances (the full-resolution pass's), with ``share_masks`` its mask
+        canvases."""
         objs = [o for o in record.get("annotations", []) if not o.get("iscrowd", 0)]
         boxes = np.zeros((self.max_gt, 4), np.float32)
         classes = np.zeros((self.max_gt,), np.int32)
@@ -89,19 +105,22 @@ class DatasetMapper:
             tb[:, 0::2] = np.clip(tb[:, 0::2], 0, tf.new_w)
             tb[:, 1::2] = np.clip(tb[:, 1::2], 0, tf.new_h)
             keep = (tb[:, 2] > tb[:, 0] + 1e-3) & (tb[:, 3] > tb[:, 1] + 1e-3)
-            # the degenerate ones go before the capacity cap
-            sel = np.flatnonzero(keep)[: self.max_gt]
+            if sel is None:
+                # the degenerate ones go before the capacity cap
+                sel = np.flatnonzero(keep)[: self.max_gt]
             objs = [objs[i] for i in sel]
             n = len(objs)
             boxes[:n] = tb[sel]
             classes[:n] = [o["category_id"] for o in objs]
             valid[:n] = keep[sel]
         gt = {"boxes": boxes, "classes": classes, "valid": valid}
-        if self.mask_on:
+        if self.mask_on and share_masks is not None:
+            gt["masks"] = share_masks["masks"]
+        elif self.mask_on:
             masks = np.zeros((self.max_gt, self.mask_canvas, self.mask_canvas), np.float32)
             for i, o in enumerate(objs):
                 if valid[i] and o.get("segmentation") is not None:
                     masks[i] = rasterize_to_canvas(o["segmentation"], boxes[i],
                                                    self.mask_canvas, tf)
             gt["masks"] = masks
-        return gt
+        return gt, sel

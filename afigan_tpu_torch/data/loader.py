@@ -3,8 +3,8 @@ and the eval part of ``dataset_mapper.py``).
 
 The eval mapper (read, resize shortest edge), the collate step (pad to a
 ``TPU.IMAGE_BUCKETS`` canvas rounded up to the model's size divisibility,
-stack; with the padded GT of training samples) in numpy, equal to the JAX
-package's; d2's infinite shuffled ``TrainingSampler``; and
+stack; with the padded GT of training samples, and with ``dual_scale`` the x0.5
+stream on the half canvas) in numpy, equal to the JAX package's; d2's infinite shuffled ``TrainingSampler``; and
 ``build_train_loader``, a plain iterator of collated training batches (no
 worker threads or prefetch: the train step's device time dwarfs the host's
 mapping at these batch sizes).
@@ -50,22 +50,44 @@ def map_record(cfg, record: Dict) -> Dict:
             "orig_height": h, "orig_width": w}
 
 
-def collate_batch(samples: List[Dict], buckets, size_divisibility: int = 64) -> Dict:
-    imgs = [s["image"] for s in samples]
-    ch, cw = choose_bucket(max(i.shape[0] for i in imgs),
-                           max(i.shape[1] for i in imgs), buckets, size_divisibility)
+def _pad_stack(imgs: List[np.ndarray], ch: int, cw: int) -> np.ndarray:
     canvas = np.zeros((len(imgs), ch, cw, imgs[0].shape[2]), imgs[0].dtype)
     for k, im in enumerate(imgs):
         canvas[k, : im.shape[0], : im.shape[1]] = im
+    return canvas
+
+
+def _sizes(imgs: List[np.ndarray]) -> np.ndarray:
+    return np.asarray([[i.shape[0], i.shape[1]] for i in imgs], np.int32)
+
+
+def _stack_gt(gts: List[Dict]) -> Dict:
+    return {k: np.stack([g[k] for g in gts]) for k in gts[0]}
+
+
+def collate_batch(samples: List[Dict], buckets, size_divisibility: int = 64,
+                  dual_scale: bool = False) -> Dict:
+    """Pad and stack mapped samples. With ``dual_scale``: ``image_x0.5`` on
+    the half canvas, ``image_sizes_x0.5``, ``gt_x0.5``, and no full-resolution
+    ``gt`` (stages 1-2 read only the half-scale GT)."""
+    imgs = [s["image"] for s in samples]
+    ch, cw = choose_bucket(max(i.shape[0] for i in imgs),
+                           max(i.shape[1] for i in imgs), buckets, size_divisibility)
     batch = {
-        "image": canvas,
-        "image_sizes": np.asarray([[i.shape[0], i.shape[1]] for i in imgs], np.int32),
+        "image": _pad_stack(imgs, ch, cw),
+        "image_sizes": _sizes(imgs),
         "image_id": np.asarray([s["image_id"] for s in samples]),
         "orig_sizes": np.asarray([[s["orig_height"], s["orig_width"]]
                                   for s in samples], np.int32),
     }
-    if "gt" in samples[0]:
-        batch["gt"] = {k: np.stack([s["gt"][k] for s in samples]) for k in samples[0]["gt"]}
+    if "gt" in samples[0] and not dual_scale:
+        batch["gt"] = _stack_gt([s["gt"] for s in samples])
+    if dual_scale:
+        halves = [s["image_x0.5"] for s in samples]
+        batch["image_x0.5"] = _pad_stack(halves, ch // 2, cw // 2)
+        batch["image_sizes_x0.5"] = _sizes(halves)
+        if "gt_x0.5" in samples[0]:
+            batch["gt_x0.5"] = _stack_gt([s["gt_x0.5"] for s in samples])
     return batch
 
 
@@ -88,20 +110,22 @@ class TrainingSampler:
             epoch += 1
 
 
-def build_train_loader(cfg, dataset, seed: int = 0) -> Iterator[Dict]:
-    """Collated training batches of ``SOLVER.IMS_PER_BATCH`` images, forever."""
+def build_train_loader(cfg, dataset, seed: int = 0, dual_scale: bool = False
+                       ) -> Iterator[Dict]:
+    """Collated training batches of ``SOLVER.IMS_PER_BATCH`` images, forever;
+    with ``dual_scale`` (stages 1-2) each with its x0.5 replay."""
     from .dataset_mapper import DatasetMapper
 
     if cfg.DATALOADER.SAMPLER_TRAIN != "TrainingSampler":
         raise NotImplementedError(f"DATALOADER.SAMPLER_TRAIN {cfg.DATALOADER.SAMPLER_TRAIN!r} "
                                   "is not ported yet")
-    mapper = DatasetMapper(cfg, is_train=True, seed=seed)
+    mapper = DatasetMapper(cfg, is_train=True, seed=seed, dual_scale=dual_scale)
     div = required_size_divisibility(cfg)
     sampler = iter(TrainingSampler(len(dataset.records), seed))
     while True:
         idxs = [next(sampler) for _ in range(cfg.SOLVER.IMS_PER_BATCH)]
         yield collate_batch([mapper(dataset.records[i]) for i in idxs],
-                            cfg.TPU.IMAGE_BUCKETS, div)
+                            cfg.TPU.IMAGE_BUCKETS, div, dual_scale)
 
 
 def build_test_loader(cfg, dataset, batch_size: int = 1) -> Iterator[Dict]:

@@ -2,9 +2,10 @@
 ``afigan_tpu/data/transforms.py``: the test-time resize, and the stage-3
 training augmentation (ResizeShortestEdge over ``INPUT.MIN_SIZE_TRAIN`` by
 choice or range, ``MAX_SIZE_TRAIN`` cap, horizontal flip) as a resolved
-record applied to images, boxes and polygons. Crop, colour jitter and the
-x0.5 replay of stages 1-2 come with those stages (the training mapper raises
-on them).
+record applied to images, boxes and polygons, and replayed at another scale
+(``at_scale``: the x0.5 stream of stages 1-2 halves only the resize target,
+so both scales share the flip). Crop and colour jitter are not ported (the
+training mapper raises on them).
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ class ResolvedTransform:
     new_h: int
     new_w: int
     hflip: bool = False
+
+    def at_scale(self, ratio: float) -> "ResolvedTransform":
+        return dataclasses.replace(self, new_h=int(self.new_h * ratio),
+                                   new_w=int(self.new_w * ratio))
 
     def apply_image(self, img: np.ndarray, interp: str = "linear") -> np.ndarray:
         import cv2

@@ -1,14 +1,19 @@
 """Checkpoints of the port's trainers (counterpart of
 ``afigan_tpu/engine/checkpoint.py``): ``<dir>/model_%07d.pth`` holding the
 model's state dict, the optimizer's and the iteration, a ``last_checkpoint``
-pointer, and resume from it. The cross-stage surgery keeps only the AF
-interpolator's keys of a detector checkpoint (``remain_only_afi_names``, the
-reference's ``remain_only_AFI_names``)."""
+pointer, and resume from it. The cross-stage surgery, over state dicts:
+``remain_only_afi_names`` keeps only the AF interpolator's keys of a detector
+checkpoint (the reference's ``remain_only_AFI_names``), ``extract_afi_subtree``
+gives them under the standalone generator's names (``Generators.0.*``),
+``transplant_generator`` puts a stage-1 generator into a detector's AF
+interpolator (keys and shapes checked), and
+``transplant_afi_between_detectors`` moves it from one detector to another
+(stage 2 → stage 3)."""
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -62,3 +67,30 @@ def remain_only_afi_names(state: Dict) -> Dict:
     if not kept:
         raise KeyError(f"no {AFI_PREFIX}* keys in the checkpoint")
     return kept
+
+
+def extract_afi_subtree(det_state: Mapping) -> Dict:
+    """A detector's AF interpolator as a standalone generator's state dict."""
+    return {k[len(AFI_PREFIX):]: v for k, v in remain_only_afi_names(det_state).items()}
+
+
+def transplant_generator(det_state: Mapping, g_state: Mapping) -> Dict:
+    """``det_state`` with its AF interpolator replaced by the generator
+    ``g_state`` (``Generators.0.*`` keys): the same keys, the same shapes."""
+    g = dict(g_state)
+    own = extract_afi_subtree(det_state)
+    if set(g) != set(own):
+        raise KeyError("transplant: the generator's keys differ from the detector's AF "
+                       f"interpolator's: {sorted(set(g) ^ set(own))[:8]}")
+    for k, v in g.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"transplant: {k} has shape {tuple(v.shape)}, the detector "
+                             f"{tuple(own[k].shape)}")
+    out = dict(det_state)
+    out.update({AFI_PREFIX + k: v for k, v in g.items()})
+    return out
+
+
+def transplant_afi_between_detectors(dst_state: Mapping, src_state: Mapping) -> Dict:
+    """``dst_state`` with ``src_state``'s AF interpolator (only it moves)."""
+    return transplant_generator(dst_state, extract_afi_subtree(src_state))

@@ -1,3 +1,3 @@
-from .build import build_model
+from .build import build_guide_model, build_model
 
-__all__ = ["build_model"]
+__all__ = ["build_guide_model", "build_model"]

@@ -1,3 +1,4 @@
+from .discriminator import PatchDiscriminator
 from .generator import AFIGenerator, ResidualDenseBlock, ResidualInResidual
 
-__all__ = ["AFIGenerator", "ResidualDenseBlock", "ResidualInResidual"]
+__all__ = ["AFIGenerator", "PatchDiscriminator", "ResidualDenseBlock", "ResidualInResidual"]

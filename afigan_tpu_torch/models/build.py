@@ -5,9 +5,11 @@ Ported registry entries: ``build_resnet_fpn_sr_backbone`` /
 nearest top-down), ``build_swint_bifpn_sr_backbone`` /
 ``build_swint_bifpn_backbone`` (Swin + BiFPN) and
 ``build_resnet_bifpn_sr_backbone`` / ``build_resnet_bifpn_backbone`` (ResNet +
-BiFPN), under ``GeneralizedRCNN`` with ``StandardROIHeads`` or
-``CascadeROIHeads``, ``FCOS`` or ``CenterMask``. Every other name raises
-``NotImplementedError`` naming the ROADMAP item.
+BiFPN), under ``GeneralizedRCNN`` (or ``GeneralizedRCNN_AFExtractor``, the
+same model returning its features too) with ``StandardROIHeads`` or
+``CascadeROIHeads``, ``FCOS`` or ``CenterMask``; the guide of stages 1-2,
+``RCNN_FPN_only`` over ``MODEL.GUIDE_BACKBONE.NAME`` (``build_guide_model``).
+Every other name raises ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from .cascade_roi_heads import CascadeROIHeads
 from .centermask import CenterMask
 from .fcos import FCOS
 from .fpn import FPN
-from .meta_arch import GeneralizedRCNN
+from .meta_arch import GeneralizedRCNN, RCNN_FPN_only
 from .resnet import build_resnet
 from .roi_heads import StandardROIHeads
 from .swin import build_swin
@@ -50,8 +52,9 @@ def pyramid_channels(cfg) -> int:
     return (cfg.MODEL.BIFPN if pyramid == "bifpn" else cfg.MODEL.FPN).OUT_CHANNELS
 
 
-def build_backbone(cfg, device=None) -> nn.Module:
-    name = cfg.MODEL.BACKBONE.NAME
+def build_backbone(cfg, device=None, name: Optional[str] = None) -> nn.Module:
+    """``name`` (default ``MODEL.BACKBONE.NAME``) → bottom-up + pyramid."""
+    name = name or cfg.MODEL.BACKBONE.NAME
     if name not in _BACKBONES:
         raise NotImplementedError(f"backbone {name!r} {_TODO}")
     bottom, pyramid, interp = _BACKBONES[name]
@@ -133,7 +136,7 @@ def build_centermask(cfg, device=None) -> CenterMask:
         pooler_impl=cfg.TPU.POOLER_IMPL, **_fcos_kwargs(cfg, device))
 
 
-def _build_rcnn(cfg, device) -> GeneralizedRCNN:
+def _build_rcnn(cfg, device, return_features=False) -> GeneralizedRCNN:
     rpn = cfg.MODEL.RPN
     return GeneralizedRCNN(
         build_backbone(cfg, device), build_roi_heads(cfg, device),
@@ -154,35 +157,61 @@ def _build_rcnn(cfg, device) -> GeneralizedRCNN:
         rpn_loss_weight=rpn.LOSS_WEIGHT,
         rpn_min_size=cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE,
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN), pixel_std=tuple(cfg.MODEL.PIXEL_STD),
-        dtype=compute_dtype(cfg), device=device)
+        dtype=compute_dtype(cfg), return_features=return_features, device=device)
+
+
+def check_device(device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; "cuda" without a GPU raises: nothing
+    carries on silently on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'{what}: no CUDA device found; pass device="cpu" to run the plain '
+            "PyTorch versions on the CPU")
+    return device
 
 
 def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None,
                 train: bool = False) -> nn.Module:
-    """META_ARCHITECTURE (``GeneralizedRCNN``, ``FCOS``, ``CenterMask``) → an
-    eval-mode model on ``device``: the GPU unless the caller asks for ``"cpu"``.
+    """META_ARCHITECTURE (``GeneralizedRCNN``, ``GeneralizedRCNN_AFExtractor``,
+    ``FCOS``, ``CenterMask``) → an eval-mode model on ``device``: the GPU unless the caller asks for ``"cpu"``.
     Without a GPU the default raises; nothing carries on silently on the CPU.
     With ``generator``, weights are drawn from it (the JAX package's init
     distributions); otherwise they are torch's defaults, to be replaced by
     ``load_state_dict``. ``train`` returns it in training mode (only
     ``GeneralizedRCNN`` with standard ROI heads trains so far)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            'build_model: no CUDA device found; pass device="cpu" to run the plain '
-            "PyTorch versions on the CPU")
+    device = check_device(device, "build_model")
     arch = cfg.MODEL.META_ARCHITECTURE
+    rcnn = ("GeneralizedRCNN", "GeneralizedRCNN_AFExtractor")
     if arch in ("FCOS", "CenterMask"):
         model = (build_fcos if arch == "FCOS" else build_centermask)(cfg, device)
-    elif arch == "GeneralizedRCNN":
-        model = _build_rcnn(cfg, device)
+    elif arch in rcnn:
+        model = _build_rcnn(cfg, device, return_features=arch == rcnn[1])
     else:
         raise NotImplementedError(f"META_ARCHITECTURE {arch!r} {_TODO}")
-    if train and (arch != "GeneralizedRCNN"
-                  or cfg.MODEL.ROI_HEADS.NAME != "StandardROIHeads"):
+    if train and (arch not in rcnn or cfg.MODEL.ROI_HEADS.NAME != "StandardROIHeads"):
         raise NotImplementedError(
             f"training {arch} / {cfg.MODEL.ROI_HEADS.NAME} is not ported yet (ROADMAP "
             "queue 1, the breadth families)")
     if generator is not None:
         model.init_weights(generator)
     return model.train(train)
+
+
+def build_guide_model(cfg, device="cuda", generator: Optional[torch.Generator] = None
+                      ) -> RCNN_FPN_only:
+    """GUIDE_ARCHITECTURE (``RCNN_FPN_only``) over ``MODEL.GUIDE_BACKBONE.NAME``:
+    the frozen teacher of stages 1-2, in eval mode with no trainable
+    parameter, on ``device`` (the GPU unless the caller asks for the CPU)."""
+    device = check_device(device, "build_guide_model")
+    arch = cfg.MODEL.GUIDE_ARCHITECTURE or "RCNN_FPN_only"
+    if arch != "RCNN_FPN_only":
+        raise NotImplementedError(f"GUIDE_ARCHITECTURE {arch!r} {_TODO}")
+    model = RCNN_FPN_only(build_backbone(cfg, device, name=cfg.MODEL.GUIDE_BACKBONE.NAME),
+                          pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+                          pixel_std=tuple(cfg.MODEL.PIXEL_STD), dtype=compute_dtype(cfg),
+                          device=device)
+    if generator is not None:
+        model.init_weights(generator)
+    model.requires_grad_(False)
+    return model.eval()

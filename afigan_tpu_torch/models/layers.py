@@ -101,6 +101,45 @@ class GroupNorm(nn.GroupNorm):
         return to_nhwc(y).to(x.dtype)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """Batch norm over NHWC with flax ``nn.BatchNorm``'s statistics, the
+    discriminator's norm (``afigan_tpu/models/layers.py::get_norm`` "SyncBN",
+    which is plain batch norm on one device). In training mode it normalises
+    by the batch's statistics and moves the running ones by ``momentum`` 0.1
+    (flax 0.9) towards them, taking the *biased* batch variance as flax does:
+    torch's own update takes the unbiased one, n/(n-1) times larger. The
+    statistics and the normalisation are torch's (float32 statistics, float32
+    affine, output in the activation's dtype). No ``num_batches_tracked``
+    (flax keeps none)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 device=None):
+        super().__init__(num_features, eps, momentum, device=device)
+        self.num_batches_tracked = None
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        # torch's BatchNorm adds a ``num_batches_tracked`` entry to a state
+        # dict without version metadata; there is none here
+        nn.Module._load_from_state_dict(self, *args, **kwargs)
+
+    def forward(self, x):  # NHWC
+        # torch.batch_norm / native_batch_norm: F.batch_norm refuses one value
+        # a channel (a 1x1 map of one image), which flax normalises to the bias
+        x = to_nchw(x)
+        if not self.training:
+            return to_nhwc(torch.batch_norm(x, self.weight, self.bias, self.running_mean,
+                                            self.running_var, False, 0.0, self.eps, True))
+        # one reduction gives the normalisation and the running update: the
+        # biased variance is recovered from the saved 1/sqrt(var + eps)
+        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True,
+                                                  0.0, self.eps)
+        with torch.no_grad():
+            var = (invstd.double().pow(-2) - self.eps).clamp_min(0.0).float()
+            self.running_mean.lerp_(mean.float(), self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return to_nhwc(y)
+
+
 def get_norm(norm: str, features: int, bn_eps: float = 1e-5) -> Optional[nn.Module]:
     """'' | 'FrozenBN' | 'BN' | 'SyncBN' | 'GN'. The port is eval-only, where
     BN and SyncBN are batch norm over the running statistics: the frozen

@@ -8,7 +8,12 @@ In training mode, given the padded ground truth, the forward returns the
 losses (RPN, box, mask, and the ``diag_fg_frac`` monitor); the RPN's
 pre/post-NMS top-k are the ``_TRAIN`` values then and the ``_TEST`` values in
 eval mode. ``draws`` is the source of the two subsamples' uniform keys
-(``ops/sampling.py::draw``)."""
+(``ops/sampling.py::draw``). With ``return_features`` (the
+``GeneralizedRCNN_AFExtractor`` of stage 2) the forward returns its result and
+the backbone's features, ``(losses, features)``.
+
+``RCNN_FPN_only`` is the frozen guide of stages 1-2: pixel normalisation and
+the backbone, giving the pyramid ``{"p2": ..., "p6": ...}``."""
 
 from __future__ import annotations
 
@@ -48,9 +53,11 @@ class GeneralizedRCNN(nn.Module):
                  rpn_positive_fraction: float = 0.5, rpn_smooth_l1_beta: float = 0.0,
                  rpn_loss_weight: float = 1.0,
                  pixel_mean=(103.53, 116.28, 123.675),
-                 pixel_std=(1.0, 1.0, 1.0), dtype=torch.float32, device=None):
+                 pixel_std=(1.0, 1.0, 1.0), dtype=torch.float32,
+                 return_features: bool = False, device=None):
         super().__init__()
         self.backbone = backbone
+        self.return_features = return_features
         self.anchor_generator = AnchorGenerator(
             [list(s) for s in anchor_sizes],
             [list(a) for a in anchor_aspect_ratios], list(rpn_strides),
@@ -110,8 +117,10 @@ class GeneralizedRCNN(nn.Module):
         with record_function("roi_heads"):
             if train:
                 losses.update(self.roi_heads.losses(features, proposals, gt, draws))
-                return losses
-            return self.roi_heads(features, proposals, image_sizes)
+                out = losses
+            else:
+                out = self.roi_heads(features, proposals, image_sizes)
+        return (out, features) if self.return_features else out
 
     def _rpn_losses(self, anchors, logits, deltas, gt: GroundTruth, draws):
         b = logits[0].shape[0]
@@ -125,3 +134,25 @@ class GeneralizedRCNN(nn.Module):
                             self.rpn_box2box, self.rpn_batch_size_per_image,
                             self.rpn_smooth_l1_beta)
         return {k: v * self.rpn_loss_weight for k, v in losses.items()}
+
+
+class RCNN_FPN_only(nn.Module):
+    """The backbone alone (ref rcnn_only.py): raw-pixel NHWC images →
+    normalised → pyramid features."""
+
+    def __init__(self, backbone: nn.Module, pixel_mean=(103.53, 116.28, 123.675),
+                 pixel_std=(1.0, 1.0, 1.0), dtype=torch.float32, device=None):
+        super().__init__()
+        self.backbone = backbone
+        self.dtype = dtype
+        self.register_buffer("pixel_mean", torch.tensor(pixel_mean, device=device),
+                             persistent=False)
+        self.register_buffer("pixel_std", torch.tensor(pixel_std, device=device),
+                             persistent=False)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        self.backbone.init_weights(gen)
+
+    def forward(self, images):
+        x = (images.float() - self.pixel_mean) / self.pixel_std
+        return self.backbone(x.to(self.dtype))

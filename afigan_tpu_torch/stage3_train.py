@@ -18,8 +18,8 @@ from __future__ import annotations
 import argparse
 
 
-def parse_args(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def parse_args(argv=None, doc=__doc__):
+    p = argparse.ArgumentParser(description=doc.splitlines()[0])
     p.add_argument("--config-file", required=True)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", default="cuda",
@@ -28,17 +28,23 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(args):
+def run(args, trainer_name: str):
+    """The config from ``args``, the named trainer of ``engine/trainers.py`` on
+    ``args.device``, its ``train``; returns the trainer."""
     from .config import get_cfg
-    from .engine.trainers import TargetDetectorTrainer
+    from .engine import trainers
 
     cfg = get_cfg()
     cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts)
     cfg.freeze()
-    trainer = TargetDetectorTrainer(cfg, device=args.device)
+    trainer = getattr(trainers, trainer_name)(cfg, device=args.device)
     trainer.train(resume=args.resume)
     return trainer
+
+
+def main(args):
+    return run(args, "TargetDetectorTrainer")
 
 
 if __name__ == "__main__":

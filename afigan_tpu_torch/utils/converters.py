@@ -335,6 +335,36 @@ def generator_state_dict(params) -> Dict[str, np.ndarray]:
     return out
 
 
+def _discriminator_key(path: Tuple[str, ...]) -> Optional[Tuple[str, Callable]]:
+    """``discriminators_0/block{i}`` / ``discriminators_0/out`` path → d2
+    'Discriminators.0.{i}.0.*' key (the inverse of the JAX package's
+    ``translate_discriminator_key``)."""
+    m = re.match(r"^discriminators_0/(?:block(\d)|out)$", path[0])
+    if m is None or len(path) != 3:
+        return None
+    base = f"Discriminators.0.{m.group(1) or 3}.0"
+    if path[1] == "conv":
+        name, tf = _conv_leaf(path[2])
+        return f"{base}.{name}", tf
+    if path[1] == "norm" and path[2] in _NORM_LEAF:
+        return f"{base}.norm.{_NORM_LEAF[path[2]]}", ident
+    return None
+
+
+def discriminator_state_dict(variables) -> Dict[str, np.ndarray]:
+    """A ``PatchDiscriminator``'s flax ``{"params", "batch_stats"}`` (or a D
+    state's params and statistics) → the port ``PatchDiscriminator``'s own
+    state-dict keys."""
+    out = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _leaves(variables.get(coll, {})):
+            tr = _discriminator_key(path)
+            if tr is None:
+                raise KeyError(f"no d2 name for discriminator {coll} {'/'.join(path)}")
+            out[tr[0]] = tr[1](np.asarray(leaf, np.float32))
+    return out
+
+
 def _fc1_channels(params) -> Dict[str, int]:
     """Per box head: the output width of its last conv, or without convs the
     pyramid's width (the RPN conv's input)."""

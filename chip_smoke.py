@@ -78,14 +78,39 @@ CPU):
               backward / optimizer split; then the pool's backward on one
               step's own ROIs and gradients, as in phase 2 (the JSON line's
               ``roi_pool_bwd`` entry)
-  8. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
+  8. stage1   stage-1 training (AFI-GAN) at full width
+              (``configs/step1_afigan_training/...R_50_FPN_1x.yaml``: R-50-FPN
+              guide, AF interpolator 256 channels with 3 dense blocks, the
+              discriminator at 512/1024/1024; bf16, batch 2, 832x1344 and its
+              416x672 half) through ``AFIGANTrainer``: two iterations of
+              ``train()`` over the in-memory dataset (dual-scale loader, G_0/
+              and D_0/ checkpoints), then 2 + 10 steps on one repeated batch:
+              no launch of any port kernel (the generator trains through its
+              unfused route), every loss finite, G and D moved, no gradient
+              left on D; ms per step, images/s, peak memory, one profiled step
+              (device busy, and its guide / generator / D step / G step
+              split by the step's record_function ranges), and the step's
+              operations (PyTorch's FLOP counter) against the
+              tensor cores' peak
+  9. stage2   stage-2 training (the AF extractor) the same way through
+              ``AFExtractorTrainer``, built from phase 8's G_0/ and D_0/
+              checkpoints (held equal on the card), whose AFExtractor/
+              checkpoint then goes into a stage-3 trainer (held equal too):
+              the detector on the half-scale images and
+              GT, the guide at 832x1344; 2 ``roi_pool``, 2 ``roi_pool_bwd`` and
+              2 NMS launches a step asserted, no generator kernel; then the
+              pool's backward on one step's own ROIs, as in phase 7
+ 10. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
               and the CPU (plain versions) on the same weights; detections must
               agree at the golden-regression tolerances. The R-50 model under
               both poolers, a narrow Swin model (embed 32, window 4) and a
               narrow CenterMask under ``windowed``
-  9. train_card_vs_cpu  one stage-3 step of a narrow float32 model on the
+ 11. train_card_vs_cpu  one stage-3 step of a narrow float32 model on the
               card and on the CPU with the same weights, batch and subsample
               keys: losses and trainable gradients must agree
+ 12. stage12_card_vs_cpu  one step of stage 1 and one of stage 2 at the CPU
+              tests' narrow widths, the same way: metrics, gradients and the
+              discriminator's statistics must agree
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -93,6 +118,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib.util
 import json
@@ -209,6 +235,20 @@ def tally(results, name, path, dtype_name) -> Tally:
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for cuDNN and for matrix products (the float32 comparisons),
+    both flags restored as they were after; also a phase's decorator."""
+    import torch
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
 def median_ms(fn, iters=10, warmup=2, inner=4):
@@ -767,7 +807,7 @@ def kernels_roi_pool_backward(results):
         torch.cuda.empty_cache()
 
 
-def check_train_pool_backward(results, calls):
+def check_train_pool_backward(results, calls, path="train"):
     """The pool's backward on the ROIs and gradients of one train step (its
     box and mask pools), in bf16 as the step runs it and in float32 on the
     same values: the JSON line's ``roi_pool_bwd`` entry. The step's gradient
@@ -777,18 +817,18 @@ def check_train_pool_backward(results, calls):
     import torch
 
     if sorted(c[5] for c in calls) != [7, 14]:
-        raise AssertionError(f"train: pool backward calls at P {[c[5] for c in calls]}")
+        raise AssertionError(f"{path}: pool backward calls at P {[c[5] for c in calls]}")
     for feats, boxes, lv, grad, strides, p, *_ in calls:
         hist = torch.bincount(lv.flatten(), minlength=len(feats)).tolist()
         n_live = int((grad.flatten(2).abs().amax(-1) > 0).sum())
         top = float(grad.abs().max())
-        log(f"  train step's pool P={p}: {tuple(boxes.shape[:2])} ROIs, by level {hist}, "
+        log(f"  {path} step's pool P={p}: {tuple(boxes.shape[:2])} ROIs, by level {hist}, "
             f"{n_live} with a gradient, its largest entry {top:.3e}")
         grad = grad / top
         for dtype_name in DTYPES:
             dt = getattr(torch, dtype_name)
             fs = [f.detach().to(dt) for f in feats]
-            check_pool_backward(results, "train", f"{dtype_name} train step "
+            check_pool_backward(results, path, f"{dtype_name} {path} step "
                                 f"C={grad.shape[-1]} P={p} N={boxes.shape[0]}x{boxes.shape[1]}",
                                 fs, boxes, lv, grad, strides, p, dtype_name)
 
@@ -1161,18 +1201,16 @@ def kernels_nms(results):
                                                           count)
 
 
+@tf32_off()
 def phase_kernels(results):
     import torch
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     for part in (kernels_generator, kernels_roi_pool, kernels_roi_pool_backward,
                  kernels_layer_norm, kernels_window_attention, kernels_window_gather,
                  kernels_nms):
         part(results)
         torch.cuda.empty_cache()
     generator_levels()
-    torch.backends.cudnn.allow_tf32 = True
 
 
 # ---------------------------------------------------------------------------
@@ -1595,7 +1633,10 @@ def phase_nms_ab(results):
 # the models' record_function ranges: their GPU spans (first to last kernel,
 # idle gaps included) are not device work
 RANGES = ("backbone", "afi_generator", "rpn", "roi_heads", "fcos_head", "fcos_decode",
-          "mask_pool", "mask_head")
+          "mask_pool", "mask_head", "guide", "generator", "detector", "d_step", "g_step")
+# the ranges of a stage-1 and a stage-2 step (engine/stage{1,2}.py::step_tensors)
+STEP_RANGES = {"stage1": ("guide", "generator", "d_step", "g_step"),
+               "stage2": ("guide", "detector", "d_step", "g_step")}
 
 
 def profile_batch(model, batch):
@@ -1962,6 +2003,17 @@ NARROW_STAGE3 = [
     "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "16", "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16"]
 
 
+def fixed_draws(shape, device):
+    """The subsample keys of the card-vs-CPU steps: numpy draws keyed by the
+    number of labels, the same on both devices."""
+    import torch
+
+    keys = np.random.RandomState(1000 + shape[-1]).rand(2, shape[-1]).astype(np.float32)
+    return tuple(torch.from_numpy(np.broadcast_to(0.1 + 0.9 * k, shape).copy()).to(device)
+                 for k in keys)
+
+
+@tf32_off()
 def phase_train_card_vs_cpu(results):
     """One stage-3 step of a narrow float32 model (TF32 off) with the same
     weights (FrozenBN calibrated on the batch), batch and fixed subsample keys
@@ -1975,8 +2027,6 @@ def phase_train_card_vs_cpu(results):
     from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = cfg_from_yaml(STEP3_YAML)
     cfg.merge_from_list(NARROW_STAGE3)
     rng = np.random.RandomState(0)
@@ -1990,11 +2040,6 @@ def phase_train_card_vs_cpu(results):
                     "valid": np.array([[True, True, False, False]] * b),
                     "masks": rng.rand(b, m, 28, 28).astype(np.float32)}}
 
-    def draws(shape, device):
-        keys = np.random.RandomState(1000 + shape[-1]).rand(2, shape[-1]).astype(np.float32)
-        return tuple(torch.from_numpy(np.broadcast_to(0.1 + 0.9 * k, shape).copy()).to(device)
-                     for k in keys)
-
     out = {}
     for dev in ("cpu", "cuda"):
         state = init_stage3_state(cfg, dev, torch.Generator().manual_seed(1))
@@ -2003,7 +2048,7 @@ def phase_train_card_vs_cpu(results):
         else:
             state.model.load_state_dict(out["cpu"][2])
         reset_launches()
-        losses = loss_and_grads(cfg, state.model, batch_to_device(batch, dev), draws)
+        losses = loss_and_grads(cfg, state.model, batch_to_device(batch, dev), fixed_draws)
         grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()
                  if p.grad is not None}
         out[dev] = ({k: float(v) for k, v in losses.items()}, grads,
@@ -2032,7 +2077,431 @@ def phase_train_card_vs_cpu(results):
                                                  for k in lc)
         + f"; {len(gg)} trainable gradients, worst error {worst:.3f} of its bound; "
         f"launches on the card {json.dumps({k: v for k, v in launched.items() if v})}")
-    torch.backends.cudnn.allow_tf32 = True
+
+
+# ---------------------------------------------------------------------------
+# stages 1 and 2: the GAN steps
+# ---------------------------------------------------------------------------
+
+STEP1_YAML = "step1_afigan_training/step1_afigan_mask_rcnn_R_50_FPN_1x.yaml"
+STEP2_YAML = "step2_af_extractor_training/step2_af_extractor_mask_rcnn_R_50_FPN_1x.yaml"
+HALF_CANVAS = (R50_CANVAS[0] // 2, R50_CANVAS[1] // 2)
+# per step: stage 1 launches no kernel of the port (the guide is plain ResNet +
+# FPN, the generator trains through its unfused route, the discriminator is
+# library convolutions); stage 2's detector launches stage 3's kernels
+STAGE1_PER_STEP = {k: 0 for k in KERNELS}
+STAGE2_PER_STEP = dict(STAGE1_PER_STEP, roi_pool=2, roi_pool_bwd=2, nms=2)
+
+
+def gan_cfg(yaml, out_dir):
+    """A step-1 or step-2 YAML at full width (R-50-FPN guide, AF interpolator
+    256 channels, 3 dense blocks of growth 32; stage 2's detector as stage
+    3's with half-size anchors), bf16, batch 2, short side 800 (832x1344
+    canvas, 416x672 half canvas); the YAML's lr at 8 images scaled to 2
+    linearly, no warm-up."""
+    from afigan_tpu_torch.config import cfg_from_yaml
+
+    cfg = cfg_from_yaml(yaml)
+    lr = cfg.SOLVER.BASE_LR * 2 / cfg.SOLVER.IMS_PER_BATCH
+    cfg.merge_from_list([
+        "TPU.COMPUTE_DTYPE", "bfloat16", "SOLVER.IMS_PER_BATCH", "2", "SOLVER.BASE_LR", str(lr),
+        "SOLVER.WARMUP_ITERS", "0", "INPUT.MIN_SIZE_TRAIN", "(800,)", "SEED", "0",
+        "DATASETS.TRAIN", "('chip_smoke_train',)", "DATASETS.TEST", "()",
+        "OUTPUT_DIR", str(out_dir)])
+    return cfg
+
+
+def range_device_ms(prof, names):
+    """The device time of the kernels that each record_function range of
+    ``names`` launched in a profile (by the host time of the launching
+    operator, the autograd thread's too), and of those outside every range:
+    {name: ms}."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.name in names and e.device_type == DeviceType.CPU]
+    out = dict.fromkeys((*names, "outside"), 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        name = next((n for n, a, b in spans if a <= e.time_range.start <= b), "outside")
+        out[name] += sum(k.duration for k in e.kernels) / 1000.0
+    return out
+
+
+def conv_device_time(prof):
+    """The device time of a profiled call's convolutions by (operator, weight
+    shape, kernel), largest first: [((op, weight, kernel), (us, launches))].
+    The trace must have been taken with ``record_shapes``."""
+    ops = ("aten::cudnn_convolution", "aten::convolution_backward")
+    out = {}
+    for e in prof.events():
+        op = e
+        while op is not None and op.name not in ops:  # the kernel's convolution
+            op = op.cpu_parent
+        if op is None or not e.kernels:
+            continue
+        shapes = op.input_shapes or []
+        weight = shapes[1 if op.name == ops[0] else 2] if len(shapes) > 2 else "?"
+        for k in e.kernels:
+            key = (op.name[len("aten::"):], str(weight), k.name)
+            us, n = out.get(key, (0.0, 0))
+            out[key] = (us + k.duration, n + 1)
+    return sorted(out.items(), key=lambda kv: -kv[1][0])
+
+
+def step_tflop(step):
+    """The operations of one call of ``step`` (forward and backward) that
+    PyTorch's FLOP counter sees (convolutions, matrix products), in TFLOP."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        step()
+    return fc.get_total_flops() / 1e12
+
+
+def check_loaded(model, saved, prefix=""):
+    """Each entry of ``saved`` (a checkpoint's path, or name → array) equals
+    the model's under ``prefix`` + its name, on the card: their number."""
+    import torch
+
+    from afigan_tpu_torch.utils.converters import load_state_dict
+
+    if not isinstance(saved, dict):
+        saved = load_state_dict(str(saved))
+    own = model.state_dict()
+    for k, v in saved.items():
+        got = own[prefix + k]
+        if not (got.is_cuda and torch.equal(got.cpu(), torch.as_tensor(v))):
+            raise AssertionError(f"{prefix + k}: not the checkpoint's value on the card")
+    if not saved:
+        raise AssertionError("an empty checkpoint")
+    return len(saved)
+
+
+def gan_phase(results, stage):
+    """Stage 1 or 2 at full width through its trainer (``AFIGANTrainer``,
+    ``AFExtractorTrainer``): two iterations of ``train()`` over an in-memory
+    dataset (dual-scale mapper, loader, hooks, both checkpoints), then the main
+    path: ``TRAIN_WARMUP`` + ``TRAIN_TIMED`` steps of the trainer's state on
+    one repeated batch, launches counted per step, every loss finite, G (stage
+    1) or the detector (stage 2) and D moved, no gradient left on D; ms per
+    step, images/s, peak memory, one profiled step (device busy share, and
+    its guide / G or detector / D step / G step split by the step's
+    record_function ranges) and the operations of a step against the tensor
+    cores' peak. Stage 2 starts from the stage-1 phase's checkpoints and
+    hands its own AF interpolator to a stage-3 trainer, each load held equal
+    to its file on the card; it then holds the pool's backward on one step's
+    own ROIs against its plain version."""
+    import json as _json
+    import shutil
+    import types
+
+    import torch
+
+    from afigan_tpu_torch.data import coco
+    from afigan_tpu_torch.data.dataset_mapper import DatasetMapper
+    from afigan_tpu_torch.data.loader import collate_batch, required_size_divisibility
+    from afigan_tpu_torch.engine import stage1, stage2
+    from afigan_tpu_torch.engine.checkpoint import AFI_PREFIX
+    from afigan_tpu_torch.engine.trainers import (AFExtractorTrainer, AFIGANTrainer,
+                                                  TargetDetectorTrainer)
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
+    from afigan_tpu_torch.tools.kernel_sweep import capture_pool_backward
+    from afigan_tpu_torch.utils.converters import load_state_dict
+
+    s1 = stage == "stage1"
+    mod = stage1 if s1 else stage2
+    out_dir = Path(__file__).resolve().parent / "output" / f"chip_smoke_{stage}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    records = train_records(torch.Generator().manual_seed(7))
+    coco.register_dataset("chip_smoke_train", lambda: types.SimpleNamespace(records=records))
+    cfg = gan_cfg(STEP1_YAML if s1 else STEP2_YAML, out_dir)
+    cfg.SOLVER.MAX_ITER = 2
+    cfg.SOLVER.CHECKPOINT_PERIOD = 2
+    mapper = DatasetMapper(cfg, is_train=True, seed=0, dual_scale=True)
+    batch = collate_batch([mapper(r) for r in records], cfg.TPU.IMAGE_BUCKETS,
+                          required_size_divisibility(cfg), dual_scale=True)
+    canvases = (tuple(batch["image"].shape[1:3]), tuple(batch["image_x0.5"].shape[1:3]))
+    if canvases != (R50_CANVAS, HALF_CANVAS):
+        raise AssertionError(f"{stage}: canvases {canvases} != {(R50_CANVAS, HALF_CANVAS)}")
+    if not s1:  # the hand-off from stage 1: the stage-1 phase's G and D
+        s1_dir = out_dir.parent / "chip_smoke_stage1"
+        handed = {"G": s1_dir / "G_0" / "model_0000002.pth",
+                  "D": s1_dir / "D_0" / "model_0000002.pth"}
+        cfg.MODEL.AFI_GEN_WEIGHTS, cfg.MODEL.AFI_DIS_WEIGHTS = map(str, handed.values())
+    t0 = time.perf_counter()
+    trainer = (AFIGANTrainer if s1 else AFExtractorTrainer)(cfg, device="cuda")
+    state = trainer.state
+    if not s1:
+        n = check_loaded(state.model, handed["G"], AFI_PREFIX)
+        n += check_loaded(state.discriminator, handed["D"])
+        log(f"  stage2: the stage-1 phase's G_0/ and D_0/ checkpoints loaded on the card "
+            f"({n} tensors equal to the files)")
+    inputs = mod.batch_to_device(batch, "cuda")
+    n_bn = calibrate_frozen_bn(state.guide, inputs["image"])
+    if not s1:
+        n_bn += calibrate_frozen_bn(state.model, inputs["image_x0.5"])
+    draws = None if s1 else trainer.sampling
+    trainer.train()
+    lines = [_json.loads(x) for x in open(out_dir / "metrics.json")]
+    ckpts = [out_dir / d / "model_0000002.pth"
+             for d in (("G_0", "D_0") if s1 else ("AFExtractor", "Disc"))]
+    key = "g_loss" if s1 else "total_loss"
+    if not all(c.is_file() for c in ckpts) or not all(np.isfinite(r[key]) for r in lines):
+        raise AssertionError(f"{stage} train(): no checkpoint or a non-finite loss: {lines}")
+    if not s1:  # the hand-off to stage 3: this phase's AF interpolator
+        cfg3 = train_cfg(out_dir / "stage3")
+        cfg3.MODEL.AF_EXTRACTOR_WEIGHTS = str(ckpts[0])
+        t3 = TargetDetectorTrainer(cfg3, device="cuda")
+        afi = {k: v for k, v in load_state_dict(cfg3.MODEL.AF_EXTRACTOR_WEIGHTS).items()
+               if k.startswith(AFI_PREFIX)}
+        n = check_loaded(t3.model, afi)
+        log(f"  stage2: a stage-3 trainer took {ckpts[0].parent.name}/{ckpts[0].name}'s AF "
+            f"interpolator on the card ({n} tensors equal to the file)")
+        del t3
+    trained = state.generator if s1 else state.model
+    n_train = sum(p.numel() for p in trained.parameters() if p.requires_grad) / 1e6
+    n_disc = sum(p.numel() for p in state.discriminator.parameters()) / 1e6
+    log(f"  {stage} train(): 2 iterations through the loader in "
+        f"{time.perf_counter() - t0:.1f} s (build included), {key} {lines[-1][key]:.4f}; "
+        f"{n_train:.2f}M trainable parameters of {'G' if s1 else 'the detector'}, "
+        f"{n_disc:.2f}M of D; {n_bn} FrozenBN statistics calibrated on the batch")
+
+    def tensors():  # G (stage 1) or the detector's trainable tensors, and D's
+        return {**{"G." + n: p for n, p in trained.named_parameters() if p.requires_grad},
+                **{"D." + n: p for n, p in state.discriminator.named_parameters()}}
+
+    before = {k: v.detach().clone() for k, v in tensors().items()}
+
+    def step():
+        return mod.train_step(cfg, state, inputs, *(() if s1 else (draws,)))
+
+    steps, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        t0 = time.perf_counter()
+        m = step()
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            ms.append(1000 * (time.perf_counter() - t0))
+        steps.append(m)
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = len(steps)
+    log(f"  {stage}: launches in {n} steps " + _json.dumps(counts))
+    per_step = STAGE1_PER_STEP if s1 else STAGE2_PER_STEP
+    for k, per in per_step.items():
+        if counts[k] != per * n:
+            raise AssertionError(f"{stage}: {counts[k]} launches of {k} in {n} steps, "
+                                 f"expected {per} per step")
+    for i, m in enumerate(steps):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{stage} step {i}: a non-finite loss {m}")
+    log(f"  {stage}: {key} by step " + " ".join(f"{m[key]:.4f}" for m in steps))
+    log(f"  {stage}: first / last step " + ", ".join(
+        f"{k} {steps[0][k]:.4f} / {steps[-1][k]:.4f}" for k in steps[0]))
+    now = tensors()
+    moved = {k: not torch.equal(v, now[k]) for k, v in before.items()}
+    for side in ("G", "D"):
+        if not any(v for k, v in moved.items() if k.startswith(side + ".")):
+            raise AssertionError(f"{stage}: {side} did not change over {n} steps")
+    if any(p.grad is not None for p in state.discriminator.parameters()):
+        raise AssertionError(f"{stage}: a gradient is left on D after the step")
+    med = float(np.median(ms))
+    log(f"  {stage}: {med:.1f} ms per step of 2 images (median of {len(ms)}; min "
+        f"{min(ms):.1f}, max {max(ms):.1f}), {2000 / med:.3f} images/s at the median, "
+        f"{R50_CANVAS[0]}x{R50_CANVAS[1]} canvas and its {HALF_CANVAS[0]}x{HALF_CANVAS[1]} "
+        f"half, bf16, lr {cfg.SOLVER.BASE_LR}; peak memory {peak:.2f} GiB; "
+        f"{sum(moved.values())} of {len(moved)} tensors of {'G' if s1 else 'the detector'} and "
+        "D moved, no gradient left on D")
+    if not s1:
+        for k in ("roi_pool", "roi_pool_bwd", "nms"):
+            results[k].setdefault("launches", {})["stage2"] = counts[k] // n
+
+    # one step under the profiler (stage 1 launches no kernel of the port, so
+    # a session with no device event at all is the lost-records case)
+    walls = []
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    for session in range(3):
+        reset_launches()
+        prof, kernels, _, whole = device_events(timed_step, device_kernels(per_step))
+        wall = walls[-1]
+        kernels = [k for k in kernels if k[0] not in RANGES]
+        busy = sum(k[1] for k in kernels) / 1000.0
+        if whole and busy > 0:
+            break
+        log(f"  {stage} profile: session {session + 1} of 3 has no whole trace")
+    log(f"  {stage} profile: wall {1000 * wall:.1f} ms (profiler on), device busy {busy:.1f} "
+        f"ms ({100 * busy / (1000 * wall):.1f} % of wall), {sum(k[2] for k in kernels)} "
+        "device kernels")
+    for name, us, count in sorted(kernels, key=lambda k: -k[1])[:12]:
+        log(f"  kernel {us / 1000:9.3f} ms x{count:<5d} {name[:90]}")
+    for name, us, count in kernels:
+        if any(p in name for p in PORT_KERNELS):
+            log(f"  port kernel {us / 1000:9.3f} ms x{count:<5d} {name[:90]}")
+    # the convolutions by weight shape, in a session of their own: recording
+    # the shapes slows the host, and the busy share above is read without it
+    prof = device_events(step, device_kernels(per_step), record_shapes=True)[0]
+    for (op, weight, kernel), (us, count) in conv_device_time(prof)[:10]:
+        log(f"  conv {us / 1000:9.3f} ms x{count:<4d} {op} weight {weight} {kernel[:60]}")
+    # the step's parts, each the device time of what its range launched
+    parts = range_device_ms(prof, STEP_RANGES[stage])
+    log(f"  {stage} split (device time by the step's record_function ranges): " + ", ".join(
+        f"{nm} {t:.1f} ms ({100 * t / busy:.1f} %)" for nm, t in parts.items()))
+    tflop = step_tflop(step)
+    bound = 1000 * tflop * 1e12 / PEAK_OPS_PER_S["bfloat16"]
+    log(f"  {stage}: {tflop:.2f} TFLOP a step (convolutions and products, forward and "
+        f"backward, PyTorch's FLOP counter): at least {bound:.1f} ms at 989 TFLOP/s "
+        f"(bf16); the median step is {med / bound:.2f}x that")
+    if not s1:
+        calls = capture_pool_backward(step)
+        del trainer, state, inputs
+        check_train_pool_backward(results, calls, path="stage2")
+        del calls
+    torch.cuda.empty_cache()
+
+
+def phase_stage1(results):
+    gan_phase(results, "stage1")
+
+
+def phase_stage2(results):
+    gan_phase(results, "stage2")
+
+
+# the narrow configs of the CPU tests tests/test_torch_port_stage{1,2}.py
+NARROW_GAN = [
+    "TPU.COMPUTE_DTYPE", "float32", "MODEL.AFI.IN_CHANNELS", "16", "MODEL.AFI.N_RDB", "1",
+    "MODEL.AFI.GROWTH_RATE", "8", "MODEL.FPN.OUT_CHANNELS", "16",
+    "MODEL.RPN.PRE_NMS_TOPK_TRAIN", "64", "MODEL.RPN.POST_NMS_TOPK_TRAIN", "32",
+    "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "16", "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16",
+    "SOLVER.BASE_LR", "0.001", "SOLVER.WARMUP_ITERS", "0"]
+
+
+def gan_narrow_run(stage, dev, cpu_state=None, scale=1.0):
+    """One narrow float32 step of ``stage`` on ``dev``: weights from a seeded
+    generator with the FrozenBN statistics calibrated on the batch (on the
+    CPU), or ``cpu_state``'s; the x0.5 images times ``scale``. Returns
+    (metrics, {name: gradient}, D's state dict after the step, the state
+    dicts before it, the wrappers' launch counts)."""
+    import torch
+
+    from afigan_tpu_torch.config import cfg_from_yaml
+    from afigan_tpu_torch.engine import stage1, stage2
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
+
+    s1 = stage == "stage1"
+    mod = stage1 if s1 else stage2
+    cfg = cfg_from_yaml(STEP1_YAML if s1 else STEP2_YAML)
+    cfg.merge_from_list(NARROW_GAN)
+    side = 128 if s1 else 256
+    img = (np.random.RandomState(5).rand(2, side, side, 3) * 255).astype(np.float32)
+    half = img.reshape(2, side // 2, 2, side // 2, 2, 3).mean(axis=(2, 4)) * np.float32(scale)
+    boxes = np.zeros((2, 4, 4), np.float32)
+    boxes[:, 0] = [8, 8, 40, 32]
+    boxes[:, 1] = [20, 24, 60, 56]
+    batch = {"image": img, "image_x0.5": half,
+             "image_sizes_x0.5": np.asarray([[side // 2] * 2] * 2, np.int32),
+             "gt_x0.5": {"boxes": boxes, "classes": np.zeros((2, 4), np.int32),
+                         "valid": np.array([[True, True, False, False]] * 2),
+                         "masks": np.random.RandomState(6).rand(2, 4, 28, 28).astype(np.float32)}}
+    state = getattr(mod, f"init_{stage}_state")(cfg, dev, torch.Generator().manual_seed(1))
+    trained = state.generator if s1 else state.model
+    modules = {"guide": state.guide, "trained": trained, "D": state.discriminator}
+    if cpu_state is None:
+        calibrate_frozen_bn(state.guide, torch.from_numpy(img))
+        if not s1:
+            calibrate_frozen_bn(state.model, torch.from_numpy(half))
+    else:
+        for k, m in modules.items():
+            m.load_state_dict(cpu_state[k])
+    sd = {k: {n: v.detach().cpu().clone() for n, v in m.state_dict().items()}
+          for k, m in modules.items()}
+    grads = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: grads.__setitem__(n, p.grad.detach().cpu().clone()))
+        for n, p in [*(("G." + n, p) for n, p in trained.named_parameters() if p.requires_grad),
+                     *(("D." + n, p) for n, p in state.discriminator.named_parameters())]]
+    reset_launches()
+    try:
+        metrics = mod.train_step(cfg, state, mod.batch_to_device(batch, dev),
+                                 *(() if s1 else (fixed_draws,)))
+    finally:
+        for h in hooks:
+            h.remove()
+    d_after = {n: v.cpu() for n, v in state.discriminator.state_dict().items()}
+    return metrics, grads, d_after, sd, dict(LAUNCHES)
+
+
+# the detector's gradients that may be held to the CPU's spread
+DEEP_RESNET = tuple(f"G.backbone.bottom_up.res{i}." for i in (3, 4, 5))
+
+
+@tf32_off()
+def phase_stage12_card_vs_cpu(results):
+    """One step of each stage at the CPU tests' narrow widths, float32 (TF32
+    off), on the card and on the CPU from the same weights, batch and (stage
+    2) subsample keys: the metrics at 1e-4 relative; each gradient (G or the
+    detector, and D's) at 1e-3 of its largest entry, or 1e-5 of the largest
+    of all, or (stage 2, the ResNet's res3-res5 alone, each such tensor
+    logged) twice the CPU's own spread under a 1 + 1e-6 scale of the x0.5
+    images, at most 5e-3 of its largest entry, where the random detector's
+    deep gradients are that ill conditioned; D's statistics after the step at 1e-4 of each tensor's
+    largest entry. On the card stage 2 runs the pool's forward and backward
+    kernels and NMS: 2 launches each."""
+    for stage, per in (("stage1", STAGE1_PER_STEP), ("stage2", STAGE2_PER_STEP)):
+        mc, gc, dc, sd, _ = gan_narrow_run(stage, "cpu")
+        mg, gg, dg, _, launched = gan_narrow_run(stage, "cuda", sd)
+        spread = {}
+        if stage == "stage2":
+            _, g2, _, _, _ = gan_narrow_run(stage, "cpu", sd, scale=1.0 + 1e-6)
+            spread = {n: float((g2[n] - g).abs().max()) for n, g in gc.items()}
+        for k, want in mc.items():
+            np.testing.assert_allclose(mg[k], want, rtol=1e-4, atol=1e-7, err_msg=f"{stage} {k}")
+        if set(gg) != set(gc) or not gg:
+            raise AssertionError(f"{stage}: card and CPU train different parameters")
+        top = max(float(g.abs().max()) for g in gc.values())
+        worst = 0.0
+        for name, want in gc.items():
+            largest = float(want.abs().max())
+            bound = max(1e-3 * largest, 1e-5 * top)
+            err = float((gg[name] - want).abs().max())
+            if err > bound and name in spread:
+                if not name.startswith(DEEP_RESNET):
+                    raise AssertionError(f"{stage} gradient {name}: {err} > {bound}, and only "
+                                         "res3-res5 may be held to the spread")
+                bound = min(2 * spread[name], 5e-3 * largest)
+                log(f"  {stage} card_vs_cpu: {name} held to the CPU's spread: error "
+                    f"{err / largest:.2e}, bound {bound / largest:.2e} of its largest entry")
+            worst = max(worst, err / bound)
+            if not err <= bound:
+                raise AssertionError(f"{stage} gradient {name}: {err} > {bound}")
+        for name, want in dc.items():
+            if "running_" in name:
+                err = float((dg[name] - want).abs().max())
+                if not err <= 1e-4 * float(want.abs().max()):
+                    raise AssertionError(f"{stage} D statistic {name}: {err}")
+        for k, n in per.items():
+            if launched[k] != n:
+                raise AssertionError(f"{stage} card_vs_cpu: {launched[k]} launches of {k}, "
+                                     f"expected {n}")
+        log(f"  {stage} card_vs_cpu: " + ", ".join(
+            f"{k} {mg[k]:.6f} (cpu {mc[k]:.6f})" for k in list(mc)[:6])
+            + f", ...; {len(gg)} gradients, worst error {worst:.3f} of its bound; D "
+            f"statistics within 1e-4; launches on the card "
+            f"{json.dumps({k: v for k, v in launched.items() if v})}")
 
 
 # ---------------------------------------------------------------------------
@@ -2121,13 +2590,10 @@ def card_vs_cpu(name, cfg, canvas, size):
     return launched
 
 
+@tf32_off()
 def phase_card_vs_cpu(results):
-    import torch
-
     from afigan_tpu_torch.config import main_path_cfg
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     def need(launched, name, kernels):
         for k in kernels:
             if not launched.get(k):
@@ -2146,7 +2612,6 @@ def phase_card_vs_cpu(results):
     need(card_vs_cpu("narrow centermask windowed", narrow_centermask_cfg(), (128, 256),
                      (120, 250)), "narrow CenterMask",
          ("window_gather", "roi_pool", "afi_chain", "afi_upsample", "nms"))
-    torch.backends.cudnn.allow_tf32 = True
 
 
 def main():
@@ -2184,8 +2649,10 @@ def main():
                         ("slice_swin", phase_slice_swin),
                         ("slice_centermask", phase_slice_centermask),
                         ("nms_ab", phase_nms_ab), ("train", phase_train),
+                        ("stage1", phase_stage1), ("stage2", phase_stage2),
                         ("card_vs_cpu", phase_card_vs_cpu),
-                        ("train_card_vs_cpu", phase_train_card_vs_cpu)):
+                        ("train_card_vs_cpu", phase_train_card_vs_cpu),
+                        ("stage12_card_vs_cpu", phase_stage12_card_vs_cpu)):
         t0 = time.perf_counter()
         log(f"== phase {name}")
         phase(results)

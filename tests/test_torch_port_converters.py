@@ -24,6 +24,7 @@ from afigan_tpu_torch.config import get_cfg, main_path_cfg
 from afigan_tpu_torch.models import build_model
 from afigan_tpu_torch.utils.converters import variables_to_state_dict
 from tests.torch_port_common import REPO, small_cfg
+from tests.torch_port_gan_tiny import GAN_TINY
 
 
 def _leaves(tree, prefix=()):
@@ -60,17 +61,72 @@ def test_converters_round_trip_full_tree():
         np.testing.assert_array_equal(node, leaf, err_msg="/".join(path))
 
 
+def _stage_cfg(yaml):
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, yaml))
+    cfg.merge_from_list(list(GAN_TINY))
+    return cfg
+
+
+def _build_model(device=None):
+    model = build_model(small_cfg(), **({} if device is None else {"device": device}))
+    return next(model.parameters()).device
+
+
+def _trainer(name, yaml):
+    def make(device=None):
+        from afigan_tpu_torch.engine import trainers
+
+        t = getattr(trainers, name)(_stage_cfg(yaml),
+                                    **({} if device is None else {"device": device}))
+        return t.device
+    return make
+
+
+def _cli(module, yaml):
+    def run(device=None):
+        import importlib
+        import types
+
+        from afigan_tpu_torch.data import coco
+
+        mod = importlib.import_module(f"afigan_tpu_torch.{module}")
+        # no iteration: the loader never reads the (empty) dataset
+        coco.register_dataset("refusal_empty", lambda: types.SimpleNamespace(records=[]))
+        argv = ["--config-file", os.path.join(REPO, yaml), *GAN_TINY, "SOLVER.MAX_ITER", "0",
+                "DATASETS.TRAIN", "('refusal_empty',)"]
+        args = mod.parse_args(argv if device is None else ["--device", device, *argv])
+        if device is None:
+            assert args.device == "cuda"
+        return mod.main(args).device
+    return run
+
+
+S1 = "configs/step1_afigan_training/step1_afigan_mask_rcnn_R_50_FPN_1x.yaml"
+S2 = "configs/step2_af_extractor_training/step2_af_extractor_mask_rcnn_R_50_FPN_1x.yaml"
+ENTRY_POINTS = {
+    "build_model": _build_model,
+    "AFIGANTrainer": _trainer("AFIGANTrainer", S1),
+    "AFExtractorTrainer": _trainer("AFExtractorTrainer", S2),
+    "stage1_train": _cli("stage1_train", S1),
+    "stage2_train": _cli("stage2_train", S2),
+}
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a GPU")
-def test_entry_points_default_to_the_gpu_and_refuse_without_one():
-    """``build_model(cfg)`` and ``run_net`` mean the GPU: without one they
-    raise, and only an explicit ``device="cpu"`` builds on the CPU."""
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_gpu_and_refuse_without_one(entry, monkeypatch, tmp_path):
+    """``build_model(cfg)``, ``run_net``, the stage-1 and stage-2 trainers and
+    their CLIs mean the GPU: without one they raise, and only an explicit
+    ``device="cpu"`` builds on the CPU."""
     from afigan_tpu_torch.run_net import parse_args
 
+    monkeypatch.chdir(tmp_path)  # the CLIs' OUTPUT_DIR
     assert parse_args(["--config-file", "x.yaml"]).device == "cuda"
+    fn = ENTRY_POINTS[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        build_model(small_cfg())
-    model = build_model(small_cfg(), device="cpu")
-    assert next(model.parameters()).device.type == "cpu"
+        fn()
+    assert torch.device(fn("cpu")).type == "cpu"
 
 
 def _cfg_pairs(plain, full, prefix=""):

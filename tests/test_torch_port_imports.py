@@ -34,7 +34,9 @@ SUBPACKAGES = ["afigan_tpu_torch." + m for m in (
     "utils.converters", "run_net", "ops.kernels.nms", "ops.nms", "engine.testing",
     "ops.matcher", "ops.sampling", "ops.losses", "ops.image_list", "engine.solver",
     "engine.stage3", "engine.events", "engine.train_loop", "engine.checkpoint",
-    "engine.trainers", "data.dataset_mapper", "stage3_train", "tools.frozen_bn")]
+    "engine.trainers", "data.dataset_mapper", "stage3_train", "tools.frozen_bn",
+    "models.afi.discriminator", "engine.stage1", "engine.stage2", "stage1_train",
+    "stage2_train")]
 
 
 def _violations(path):

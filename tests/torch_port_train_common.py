@@ -72,6 +72,8 @@ STAGE3_OVERRIDES = [
 ]
 
 
+
+
 def stage3_cfgs(extra=()):
     """(JAX config, port config): the narrow stage-3 config of the JAX
     package's own train-step tests, built from the same YAML both ways."""
@@ -103,6 +105,23 @@ def calibrated_jax_params(params, cfg, images):
     calibrate_frozen_bn(model, torch.tensor(images))
     variables, _ = state_dict_to_variables(
         {k: v.numpy() for k, v in model.state_dict().items()}, template={"params": params})
+    return variables["params"]
+
+
+def calibrated_guide(cfg, params, images):
+    """The JAX guide's (``RCNN_FPN_only``) params with their FrozenBN
+    statistics calibrated on ``images``, as ``calibrated_jax_params``."""
+    from afigan_tpu.utils.converters import state_dict_to_variables
+    from afigan_tpu_torch.models import build_guide_model
+    from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
+    from afigan_tpu_torch.utils.converters import variables_to_state_dict
+
+    guide = build_guide_model(cfg, device="cpu")
+    sd = variables_to_state_dict({"params": params})
+    guide.load_state_dict({k: torch.tensor(v) for k, v in sd.items()}, strict=True)
+    calibrate_frozen_bn(guide, torch.tensor(images))
+    variables, _ = state_dict_to_variables(
+        {k: v.numpy() for k, v in guide.state_dict().items()}, template={"params": params})
     return variables["params"]
 
 
