@@ -2,14 +2,20 @@
 
 Ported registry entries: ``build_resnet_fpn_sr_backbone`` /
 ``build_resnet_fpn_backbone`` (ResNet + FPN with the AF interpolator /
-nearest top-down), ``build_swint_bifpn_sr_backbone`` /
+nearest top-down), ``build_resnet_pafpn_sr_backbone`` /
+``build_resnet_pafpn_backbone`` (ResNet + PAFPN),
+``build_resnest_fpn_sr_backbone`` / ``build_resnest_pafpn_sr_backbone``
+(ResNeSt + FPN / PAFPN), ``build_swint_bifpn_sr_backbone`` /
 ``build_swint_bifpn_backbone`` (Swin + BiFPN) and
 ``build_resnet_bifpn_sr_backbone`` / ``build_resnet_bifpn_backbone`` (ResNet +
 BiFPN), under ``GeneralizedRCNN`` (or ``GeneralizedRCNN_AFExtractor``, the
 same model returning its features too) with ``StandardROIHeads`` or
 ``CascadeROIHeads``, ``FCOS`` or ``CenterMask``; the guide of stages 1-2,
 ``RCNN_FPN_only`` over ``MODEL.GUIDE_BACKBONE.NAME`` (``build_guide_model``).
-Every other name raises ``NotImplementedError`` naming the ROADMAP item.
+Every other name raises ``NotImplementedError`` naming the ROADMAP item:
+queue 1 item 6, sub-item e for keypoints, ``Res5ROIHeads`` and
+``ProposalNetwork``, d for FCOS / CenterMask training, c for the deformable
+conv.
 """
 
 from __future__ import annotations
@@ -25,11 +31,13 @@ from .centermask import CenterMask
 from .fcos import FCOS
 from .fpn import FPN
 from .meta_arch import GeneralizedRCNN, RCNN_FPN_only
+from .pafpn import PAFPN
+from .resnest import build_resnest
 from .resnet import build_resnet
 from .roi_heads import StandardROIHeads
 from .swin import build_swin
 
-_TODO = "not ported yet (ROADMAP Queue 1 item 12, the breadth families)"
+_TODO = "not ported yet (ROADMAP queue 1 item 6e)"
 _STRIDES = {"res2": 4, "res3": 8, "res4": 16, "res5": 32,
             "p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64, "p7": 128}
 
@@ -41,6 +49,10 @@ def compute_dtype(cfg) -> torch.dtype:
 # name → (bottom-up, pyramid, top-down interpolator)
 _BACKBONES = {"build_resnet_fpn_sr_backbone": ("resnet", "fpn", "afi"),
               "build_resnet_fpn_backbone": ("resnet", "fpn", "nearest"),
+              "build_resnet_pafpn_sr_backbone": ("resnet", "pafpn", "afi"),
+              "build_resnet_pafpn_backbone": ("resnet", "pafpn", "nearest"),
+              "build_resnest_fpn_sr_backbone": ("resnest", "fpn", "afi"),
+              "build_resnest_pafpn_sr_backbone": ("resnest", "pafpn", "afi"),
               "build_swint_bifpn_sr_backbone": ("swin", "bifpn", "afi"),
               "build_swint_bifpn_backbone": ("swin", "bifpn", "nearest"),
               "build_resnet_bifpn_sr_backbone": ("resnet", "bifpn", "afi"),
@@ -56,7 +68,8 @@ def build_backbone(cfg, device=None, name: Optional[str] = None) -> nn.Module:
     """``name`` (default ``MODEL.BACKBONE.NAME``) → bottom-up + pyramid."""
     name = name or cfg.MODEL.BACKBONE.NAME
     if name not in _BACKBONES:
-        raise NotImplementedError(f"backbone {name!r} {_TODO}")
+        # every name of the JAX package's BACKBONE_REGISTRY is ported
+        raise KeyError(f"Unknown backbone: {name}; have {sorted(_BACKBONES)}")
     bottom, pyramid, interp = _BACKBONES[name]
     afi = dict(afi_n_rdb=cfg.MODEL.AFI.N_RDB, afi_growth_rate=cfg.MODEL.AFI.GROWTH_RATE,
                afi_residual_scale=cfg.MODEL.AFI.RESIDUAL_SCALE)
@@ -64,7 +77,7 @@ def build_backbone(cfg, device=None, name: Optional[str] = None) -> nn.Module:
         bottom_up = build_swin(cfg, device)
         chans = bottom_up.out_channels
     else:
-        bottom_up = build_resnet(cfg, device)
+        bottom_up = (build_resnest if bottom == "resnest" else build_resnet)(cfg, device)
         r = cfg.MODEL.RESNETS
         chans = {f"res{s}": r.RES2_OUT_CHANNELS * 2 ** (s - 2) for s in range(2, 6)}
     if pyramid == "bifpn":
@@ -72,21 +85,20 @@ def build_backbone(cfg, device=None, name: Optional[str] = None) -> nn.Module:
         return BiFPN(bottom_up, in_channels=chans, in_features=tuple(bf.IN_FEATURES),
                      out_channels=bf.OUT_CHANNELS, fpn_repeat=bf.FPN_REPEAT, norm=bf.NORM,
                      interp=interp, device=device, **afi)
-    return FPN(
-        bottom_up, in_channels=chans, in_features=tuple(cfg.MODEL.FPN.IN_FEATURES),
-        in_strides=tuple(_STRIDES[f] for f in cfg.MODEL.FPN.IN_FEATURES),
-        out_channels=cfg.MODEL.FPN.OUT_CHANNELS, norm=cfg.MODEL.FPN.NORM,
-        fuse_type=cfg.MODEL.FPN.FUSE_TYPE, interp=interp,
-        top_block=cfg.MODEL.FPN.TOP_BLOCK,
-        top_block_in_feature=cfg.MODEL.FPN.TOP_BLOCK_IN_FEATURE, device=device, **afi)
+    fpn = dict(in_channels=chans, in_features=tuple(cfg.MODEL.FPN.IN_FEATURES),
+               in_strides=tuple(_STRIDES[f] for f in cfg.MODEL.FPN.IN_FEATURES),
+               out_channels=cfg.MODEL.FPN.OUT_CHANNELS, norm=cfg.MODEL.FPN.NORM,
+               fuse_type=cfg.MODEL.FPN.FUSE_TYPE, interp=interp, device=device, **afi)
+    if pyramid == "pafpn":  # p6 by max pool whatever FPN.TOP_BLOCK says, as in JAX
+        return PAFPN(bottom_up, **fpn)
+    return FPN(bottom_up, top_block=cfg.MODEL.FPN.TOP_BLOCK,
+               top_block_in_feature=cfg.MODEL.FPN.TOP_BLOCK_IN_FEATURE, **fpn)
 
 
 def build_roi_heads(cfg, device=None) -> StandardROIHeads:
     rh, bh, mh = cfg.MODEL.ROI_HEADS, cfg.MODEL.ROI_BOX_HEAD, cfg.MODEL.ROI_MASK_HEAD
     if rh.NAME not in ("StandardROIHeads", "CascadeROIHeads") or cfg.MODEL.KEYPOINT_ON:
-        raise NotImplementedError(f"ROI heads {rh.NAME!r} / keypoints {_TODO}")
-    if cfg.MODEL.MASK_ON and mh.NORM:
-        raise NotImplementedError(f"a mask head with norm {mh.NORM!r} {_TODO}")
+        raise NotImplementedError(f"ROI heads {rh.NAME!r} (Res5ROIHeads) / keypoints {_TODO}")
     common = dict(
         in_channels=pyramid_channels(cfg), num_classes=rh.NUM_CLASSES,
         in_features=tuple(rh.IN_FEATURES),
@@ -96,7 +108,8 @@ def build_roi_heads(cfg, device=None) -> StandardROIHeads:
         box_norm=bh.NORM, bbox_reg_weights=tuple(bh.BBOX_REG_WEIGHTS),
         cls_agnostic_bbox_reg=bh.CLS_AGNOSTIC_BBOX_REG, mask_on=cfg.MODEL.MASK_ON,
         mask_pooler_resolution=mh.POOLER_RESOLUTION, mask_num_conv=mh.NUM_CONV,
-        mask_conv_dim=mh.CONV_DIM, cls_agnostic_mask=mh.CLS_AGNOSTIC_MASK,
+        mask_conv_dim=mh.CONV_DIM, mask_norm=mh.NORM,
+        cls_agnostic_mask=mh.CLS_AGNOSTIC_MASK,
         score_thresh=rh.SCORE_THRESH_TEST, nms_thresh=rh.NMS_THRESH_TEST,
         detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
         sampling_ratio=max(bh.POOLER_SAMPLING_RATIO, 2),
@@ -188,11 +201,11 @@ def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None,
     elif arch in rcnn:
         model = _build_rcnn(cfg, device, return_features=arch == rcnn[1])
     else:
-        raise NotImplementedError(f"META_ARCHITECTURE {arch!r} {_TODO}")
+        raise NotImplementedError(f"META_ARCHITECTURE {arch!r} (ProposalNetwork) {_TODO}")
     if train and (arch not in rcnn or cfg.MODEL.ROI_HEADS.NAME != "StandardROIHeads"):
         raise NotImplementedError(
             f"training {arch} / {cfg.MODEL.ROI_HEADS.NAME} is not ported yet (ROADMAP "
-            "queue 1, the breadth families)")
+            "queue 1 item 6d, FCOS / CenterMask / Cascade training)")
     if generator is not None:
         model.init_weights(generator)
     return model.train(train)
@@ -206,7 +219,7 @@ def build_guide_model(cfg, device="cuda", generator: Optional[torch.Generator] =
     device = check_device(device, "build_guide_model")
     arch = cfg.MODEL.GUIDE_ARCHITECTURE or "RCNN_FPN_only"
     if arch != "RCNN_FPN_only":
-        raise NotImplementedError(f"GUIDE_ARCHITECTURE {arch!r} {_TODO}")
+        raise KeyError(f"Unknown GUIDE_ARCHITECTURE: {arch}")
     model = RCNN_FPN_only(build_backbone(cfg, device, name=cfg.MODEL.GUIDE_BACKBONE.NAME),
                           pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
                           pixel_std=tuple(cfg.MODEL.PIXEL_STD), dtype=compute_dtype(cfg),

@@ -4,7 +4,8 @@ stages, each with its own head, class-agnostic regression and box2box
 weights, each refining the previous stage's boxes (clipped to the image in
 between); the class scores are the mean of the per-stage softmax
 probabilities, then the fixed-shape per-image detection. The mask branch is
-``StandardROIHeads``'s. d2 keys ``box_head.{k}.*``, ``box_predictor.{k}.*``.
+``StandardROIHeads``'s, on the final stage's detections (or on the boxes a
+test-time-augmentation caller gives, with no box stage run). d2 keys ``box_head.{k}.*``, ``box_predictor.{k}.*``.
 """
 
 from __future__ import annotations
@@ -35,10 +36,11 @@ class CascadeROIHeads(StandardROIHeads):
 
     def losses(self, *args, **kwargs):
         raise NotImplementedError(
-            "Cascade R-CNN training is not ported yet (ROADMAP queue 1, the breadth "
-            "families)")
+            "Cascade R-CNN training is not ported yet (ROADMAP queue 1 item 6d)")
 
-    def forward(self, features, proposals, image_sizes):
+    def forward(self, features, proposals, image_sizes, given_dets=None):
+        if given_dets is not None:
+            return super().forward(features, proposals, image_sizes, given_dets)
         b, k = proposals.scores.shape
         boxes = proposals.proposals
         all_probs = []

@@ -1,6 +1,7 @@
 """Mask R-CNN mask head (counterpart of ``afigan_tpu/models/mask_head.py``):
-NUM_CONV 3x3 convs → 2x2/s2 transposed conv → 1x1 per-class predictor (d2
-keys mask_fcn{i}, deconv, predictor), and its training side: mask targets
+NUM_CONV 3x3 convs (+ norm, no bias under a norm) → 2x2/s2 transposed conv →
+1x1 per-class predictor (d2 keys mask_fcn{i}[.norm], deconv, predictor), and
+its training side: mask targets
 by bilinear crop-resize of each GT instance's host-rasterised canvas under
 the proposal → GT-box transform (two interpolation-matrix products, as the
 JAX package computes them), and the BCE loss on the GT class's channel."""
@@ -17,13 +18,15 @@ from .layers import Conv2d, ConvTranspose2d, init_weight
 
 class MaskRCNNConvUpsampleHead(nn.Module):
     def __init__(self, in_channels: int, num_classes: int, num_conv: int = 4,
-                 conv_dim: int = 256, cls_agnostic: bool = False, device=None):
+                 conv_dim: int = 256, cls_agnostic: bool = False, norm: str = "",
+                 device=None):
         super().__init__()
         self.num_conv = num_conv
         dim = in_channels
         for i in range(num_conv):
-            self.add_module(f"mask_fcn{i + 1}",
-                            Conv2d(dim, conv_dim, 3, padding=1, device=device))
+            self.add_module(f"mask_fcn{i + 1}", Conv2d(dim, conv_dim, 3, padding=1,
+                                                       bias=not norm, norm=norm,
+                                                       device=device))
             dim = conv_dim
         self.deconv = ConvTranspose2d(dim, conv_dim, 2, 2, 0, device=device)
         self.predictor = Conv2d(conv_dim, 1 if cls_agnostic else num_classes, 1,
@@ -33,7 +36,8 @@ class MaskRCNNConvUpsampleHead(nn.Module):
         for i in range(self.num_conv):
             m = getattr(self, f"mask_fcn{i + 1}")
             init_weight(m.weight, "msra", gen)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         init_weight(self.deconv.weight, "msra", gen, transposed=True)
         nn.init.zeros_(self.deconv.bias)
         init_weight(self.predictor.weight, "normal0.001", gen)

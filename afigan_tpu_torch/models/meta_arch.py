@@ -91,16 +91,26 @@ class GeneralizedRCNN(nn.Module):
         self.proposal_generator.rpn_head.init_weights(gen)
         self.roi_heads.init_weights(gen)
 
-    def forward(self, images, image_sizes, gt: Optional[GroundTruth] = None, draws=None):
+    def forward(self, images, image_sizes, gt: Optional[GroundTruth] = None, draws=None,
+                given_dets=None):
         """images (B, H, W, 3) raw pixels, padded; image_sizes (B, 2) int →
         in eval mode (Detections with (B, D, ...) fields, masks (B, D, S, S)
-        or None); in training mode, with ``gt``, the dict of losses."""
-        if self.training and gt is None:
-            raise ValueError("a model in training mode needs the ground truth (gt=)")
+        or None); in training mode, with ``gt``, the dict of losses. With
+        ``given_dets`` (eval mode; test-time augmentation's mask fusion) the
+        backbone and only the mask branch run on those boxes: ``(given_dets,
+        masks or None)``. The JAX model also runs its RPN there and drops the
+        proposals; the port skips it."""
+        if self.training and (gt is None or given_dets is not None):
+            raise ValueError("a model in training mode needs the ground truth (gt=) and "
+                             "takes no given_dets")
         # record_function ranges name the layers in a torch.profiler trace
         with record_function("backbone"):
             x = (images.float() - self.pixel_mean) / self.pixel_std
             features = self.backbone(x.to(self.dtype))
+        if given_dets is not None:
+            with record_function("roi_heads"):
+                out = self.roi_heads(features, None, image_sizes, given_dets=given_dets)
+            return (out, features) if self.return_features else out
         with record_function("rpn"):
             rpn_feats = [features[f] for f in self.rpn_in_features]
             anchors = self.anchor_generator([f.shape[1:3] for f in rpn_feats],

@@ -1,6 +1,7 @@
-"""ResNet-50 bottom-up (d2 structure and key names), NHWC.
+"""ResNet-50/101/152 bottom-up (d2 structure and key names), NHWC.
 
-Counterpart of ``afigan_tpu/models/resnet.py`` at depth 50: 7x7/s2 stem +
+Counterpart of ``afigan_tpu/models/resnet.py`` at depths 50, 101 and 152
+(bottleneck blocks; the basic-block depths 18 and 34 are not ported): 7x7/s2 stem +
 3x3/s2 max pool, res2..res5 bottleneck stages, FrozenBN, stride on the
 1x1 conv (``STRIDE_IN_1X1``). Keys: ``stem.conv1.*``,
 ``res{s}.{i}.{conv1,conv2,conv3,shortcut}.*``.
@@ -16,7 +17,7 @@ import torch.nn.functional as F
 
 from .layers import Conv2d, init_weight, to_nchw, to_nhwc
 
-RESNET_STAGES = {50: (3, 4, 6, 3)}
+RESNET_STAGES = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
 class BottleneckBlock(nn.Module):
@@ -65,7 +66,8 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in RESNET_STAGES or num_groups != 1:
             raise NotImplementedError(
-                "only ResNet-50 (groups 1) is ported (ROADMAP Queue 1 item 12)")
+                f"ResNet depth {depth} / {num_groups} groups: only depths "
+                f"{sorted(RESNET_STAGES)} with one group are ported (ROADMAP queue 1 item 6)")
         self.out_features = tuple(out_features)
         self.stem = BasicStem(3, stem_out_channels, norm, device)
         in_ch = stem_out_channels

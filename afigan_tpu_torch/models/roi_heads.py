@@ -2,7 +2,8 @@
 ``afigan_tpu/models/roi_heads.py::StandardROIHeads``): multi-level ROI
 pooling (``ops/roi_align.py::pool_rois`` by ``TPU.POOLER_IMPL``; CUDA kernels
 on the card, forward and backward), the Fast R-CNN box branch with
-fixed-shape per-image detection, and the mask branch on the detected boxes.
+fixed-shape per-image detection, and the mask branch on the detected boxes
+(or, for test-time augmentation, on boxes the caller gives).
 
 Training (``losses``): proposals matched to the padded GT (Matcher 0.5) and
 subsampled to ``batch_size_per_image`` per image at ``positive_fraction``
@@ -85,7 +86,8 @@ class StandardROIHeads(nn.Module):
                  bbox_reg_weights: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0),
                  cls_agnostic_bbox_reg: bool = False, mask_on: bool = False,
                  mask_pooler_resolution: int = 14, mask_num_conv: int = 4,
-                 mask_conv_dim: int = 256, cls_agnostic_mask: bool = False,
+                 mask_conv_dim: int = 256, mask_norm: str = "",
+                 cls_agnostic_mask: bool = False,
                  score_thresh: float = 0.05, nms_thresh: float = 0.5,
                  detections_per_image: int = 100, sampling_ratio: int = 2,
                  aligned: bool = True, pooler_impl: str = "pallas",
@@ -122,7 +124,7 @@ class StandardROIHeads(nn.Module):
         if mask_on:
             self.mask_head = MaskRCNNConvUpsampleHead(
                 in_channels, num_classes, mask_num_conv, mask_conv_dim,
-                cls_agnostic_mask, device)
+                cls_agnostic_mask, mask_norm, device)
 
     def _build_box_heads(self, make_head, make_predictor) -> None:
         self.box_head = make_head()
@@ -143,8 +145,14 @@ class StandardROIHeads(nn.Module):
                            self.sampling_ratio, self.aligned)
         return pooled.reshape(-1, *pooled.shape[2:]).to(feats[0].dtype)
 
-    def forward(self, features: Dict[str, torch.Tensor], proposals: RPNOutput,
-                image_sizes) -> Tuple[Detections, torch.Tensor]:
+    def forward(self, features: Dict[str, torch.Tensor], proposals: Optional[RPNOutput],
+                image_sizes, given_dets: Optional[Detections] = None
+                ) -> Tuple[Detections, Optional[torch.Tensor]]:
+        """→ (Detections of (B, D, ...) tensors, masks (B, D, S, S) or None).
+        With ``given_dets`` (test-time augmentation) only the mask branch runs,
+        on those boxes, and they come back as they were given."""
+        if given_dets is not None:
+            return given_dets, self._mask_branch(features, given_dets) if self.mask_on else None
         b, k = proposals.scores.shape
         flat = self._pool(features, proposals.proposals, self.box_res)
         logits, deltas = self.box_predictor(self.box_head(flat))

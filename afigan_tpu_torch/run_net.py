@@ -8,7 +8,9 @@ Usage:
 
 Same surface as the repo's ``run_net.py``: YAML config with ``_BASE_``
 inheritance and dotted overrides, ``DATASETS.TEST[0]`` registered from
-``DATASETS.ROOT``, then inference and the COCO evaluator. Weights come from
+``DATASETS.ROOT``, then inference (test-time augmentation under
+``TEST.AUG.ENABLED``, ``engine/tta.py::run_tta_inference``) and the COCO
+evaluator, whose results are held against ``TEST.EXPECTED_RESULTS``. Weights come from
 ``MODEL.WEIGHTS`` (d2 ``.pkl`` / torch ``.pth``) or, when empty, from a
 seeded generator (``--seed``). Runs on the GPU and fails without one;
 ``--device cpu`` asks for the CPU.
@@ -59,6 +61,7 @@ def main(args):
     from .data import coco
     from .engine.inference import run_inference
     from .engine.testing import verify_results
+    from .engine.tta import run_tta_inference
     from .models.build import build_model
 
     if not args.eval_only:
@@ -67,12 +70,6 @@ def main(args):
     cfg = get_cfg()
     cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts)
-    if cfg.TEST.AUG.ENABLED:
-        # the JAX CLI runs run_tta_inference here; single-scale AP must not
-        # stand in for it
-        raise NotImplementedError(
-            "TEST.AUG.ENABLED: test-time augmentation is not ported yet "
-            "(ROADMAP queue 1 item 6b, engine/tta.py)")
     coco.register_default_datasets(cfg.DATASETS.ROOT)
     dataset = coco.get_dataset(cfg.DATASETS.TEST[0])
 
@@ -81,7 +78,10 @@ def main(args):
     model = build_model(cfg, device=device, generator=gen)
     if cfg.MODEL.WEIGHTS:
         load_weights(model, cfg.MODEL.WEIGHTS)
-    results = run_inference(cfg, model, dataset)
+    if cfg.TEST.AUG.ENABLED:
+        results = run_tta_inference(cfg, model, dataset)
+    else:
+        results = run_inference(cfg, model, dataset)
     print(json.dumps(results))
     verify_results(cfg, results)
     return results

@@ -7,9 +7,13 @@ arrays serves both packages: ``state_dict_to_variables`` maps a port
 JAX tree (e.g. from ``model.init``) back into the port. Layouts undone:
 HWIO→OIHW (conv), HWIO(in,out)→IOHW (transposed conv), (in,out)→(out,in)
 (linear), and the HWC→CHW input-order permutation of the first box FC
-(``t_linear_from_chw``). Covers the ResNet / Swin bottom-ups, the FPN and
-BiFPN pyramids with the AF interpolator, the RPN, and the standard and
-cascade ROI heads (batch-norm statistics from ``batch_stats``).
+(``t_linear_from_chw``). Covers the ResNet / ResNeSt / Swin bottom-ups (the
+ResNeSt deep stem ``stem.conv1_{1,2,3}`` and split-attention
+``conv2.{conv,bn0,fc1,bn1,fc2}``), the FPN, PAFPN and BiFPN pyramids with the
+AF interpolator (``fpn_lateral``, ``fpn_output``, ``pafpn_output``,
+``pafpn_downsample``, each with its norm), the RPN, and the standard and
+cascade ROI heads with normed box and mask heads (batch-norm statistics from
+``batch_stats``).
 
 FCOS and CenterMask have no names in the JAX package's converter; theirs
 follow AdelaiDet and CenterMask2:
@@ -112,6 +116,9 @@ def ident(w):
 
 _NORM_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
+# a ResNeSt split-attention conv2's parts: (flax module, conv|norm) → d2 name
+_SPLAT = {("conv", "conv"): "conv", ("conv", "norm"): "bn0", ("fc1", "conv"): "fc1",
+          ("fc1", "norm"): "bn1", ("fc2", "conv"): "fc2"}
 _GEN_SEQ = {"generators_0/head": "0.0.0", "generators_0/mid": "0.2.0",
             "generators_0/tail": "0.4.0"}
 
@@ -255,6 +262,12 @@ def translate_path(path: Tuple[str, ...], fc1_channels: Dict[str, int],
             if not m:
                 return None
             prefix = f"backbone.bottom_up.res{m.group(1)}.{m.group(2)}.{layer}"
+        if len(p) == 7 and (p[4], p[5]) in _SPLAT:
+            prefix = f"{prefix}.{_SPLAT[p[4], p[5]]}"
+            if p[5] == "norm":
+                return f"{prefix}.{_NORM_LEAF[p[6]]}", ident
+            name, tf = _conv_leaf(p[6])
+            return f"{prefix}.{name}", tf
         if p[4] == "conv" and p[5] == "kernel":
             return prefix + ".weight", inv_conv
         if p[4] == "norm":
@@ -271,7 +284,9 @@ def translate_path(path: Tuple[str, ...], fc1_channels: Dict[str, int],
             if out is None:
                 return None
             return "backbone.srf_module." + out[0], out[1]
-        if re.match(r"^fpn_(lateral|output)\d$", p[2]) and p[3] == "conv":
+        if re.match(r"^(fpn_lateral|fpn_output|pafpn_output|pafpn_downsample)\d$", p[2]):
+            if p[3] == "norm":
+                return f"backbone.{p[2]}.norm.{_NORM_LEAF[p[4]]}", ident
             name, tf = _conv_leaf(p[4])
             return f"backbone.{p[2]}.{name}", tf
         if p[2] in ("top_block/p6", "top_block/p7") and p[3] == "conv":
@@ -311,6 +326,8 @@ def translate_path(path: Tuple[str, ...], fc1_channels: Dict[str, int],
             if p[3] == "conv":
                 name, tf = _conv_leaf(p[4])
                 return f"roi_heads.mask_head.{p[2]}.{name}", tf
+            if p[3] == "norm":
+                return f"roi_heads.mask_head.{p[2]}.norm.{_NORM_LEAF[p[4]]}", ident
         return None
     return None
 

@@ -35,7 +35,7 @@ CPU):
               pool's backward at the train step's shapes (box pool 2 x 512 ROIs
               at P 7, mask pool 2 x 128 at P 14, C 256) against autograd through
               the plain gather, the same bits on a second run, by events (its
-              device time is read in phase 7); the plain gradient without one
+              device time is read in phase 10); the plain gradient without one
               ROI must fail
   3. slice    Mask R-CNN R-50-FPN + AF interpolator at full width (bf16, random
               weights from a seeded torch.Generator) through ``build_model``
@@ -61,13 +61,29 @@ CPU):
               ``windowed`` (one ``window_gather`` launch and one ``roi_pool``
               launch over the overflow slots a batch); 24 generator calls and 2
               NMS calls a batch; on one batch the two poolers' features and masks must agree
-  6. nms_ab   r50 and centermask (main path): every NMS call of one batch
+  6. slice_pafpn  Mask R-CNN R-50-PAFPN(AFI) from its YAML at full width,
+              832x1344, batch 2, bf16, the same two traffics as phase 3, launch
+              counts a batch asserted (3 generator calls, 2 pooler calls, 4 NMS)
+  7. slice_resnest  Cascade Mask R-CNN ResNeSt-101 (radix 2, deep stem, SyncBN)
+              with FPN(AFI) and with PAFPN(AFI) from their YAMLs at full width,
+              the canvas of their 800/1333 test sizes, batch 2, bf16, the same
+              two traffics; 4 pooler calls a batch (3 cascade box stages and the
+              mask head on the final detections), 3 generator calls, 4 NMS
+  8. tta      the flagship YAML unchanged (Swin-L + BiFPN x7 + Cascade R-CNN;
+              9 scales x flip) through ``engine/tta.py::run_tta_inference`` over
+              an on-disk COCO set of 2 random-pixel 480x640 images, bf16: seconds
+              per image, 18 passes an image of one image each, every launch
+              count of a pass asserted (the Swin slice's, NMS 2) plus one merge
+              NMS an image, peak memory by canvas; then one pass at the smallest
+              and one at the largest scale with every kernel call held against
+              its plain version
+  9. nms_ab   r50 and centermask (main path): every NMS call of one batch
               under torch.cuda.set_sync_debug_mode("error"), the host syncs
               from the proposal head to the end of a batch logged by source
               line; then 10 batches with the NMS kernel against 10 with the
               blocked plain loop on the card, alternating, medians and layer
               splits side by side (the plain route is this script's switch)
-  7. train    stage-3 training of Mask R-CNN R-50-FPN(AFI) at full width
+ 10. train    stage-3 training of Mask R-CNN R-50-FPN(AFI) at full width
               (``configs/step3_afigan_mask_rcnn_R_50_FPN_3x.yaml``, bf16, batch
               2, 832x1344) through ``TargetDetectorTrainer``: two iterations of
               ``train()`` over an in-memory dataset, then 2 + 10 steps on one
@@ -78,7 +94,7 @@ CPU):
               backward / optimizer split; then the pool's backward on one
               step's own ROIs and gradients, as in phase 2 (the JSON line's
               ``roi_pool_bwd`` entry)
-  8. stage1   stage-1 training (AFI-GAN) at full width
+ 11. stage1   stage-1 training (AFI-GAN) at full width
               (``configs/step1_afigan_training/...R_50_FPN_1x.yaml``: R-50-FPN
               guide, AF interpolator 256 channels with 3 dense blocks, the
               discriminator at 512/1024/1024; bf16, batch 2, 832x1344 and its
@@ -92,23 +108,25 @@ CPU):
               split by the step's record_function ranges), and the step's
               operations (PyTorch's FLOP counter) against the
               tensor cores' peak
-  9. stage2   stage-2 training (the AF extractor) the same way through
-              ``AFExtractorTrainer``, built from phase 8's G_0/ and D_0/
+ 12. stage2   stage-2 training (the AF extractor) the same way through
+              ``AFExtractorTrainer``, built from phase 11's G_0/ and D_0/
               checkpoints (held equal on the card), whose AFExtractor/
               checkpoint then goes into a stage-3 trainer (held equal too):
               the detector on the half-scale images and
               GT, the guide at 832x1344; 2 ``roi_pool``, 2 ``roi_pool_bwd`` and
               2 NMS launches a step asserted, no generator kernel; then the
-              pool's backward on one step's own ROIs, as in phase 7
- 10. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
+              pool's backward on one step's own ROIs, as in phase 10
+ 13. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
               and the CPU (plain versions) on the same weights; detections must
               agree at the golden-regression tolerances. The R-50 model under
-              both poolers, a narrow Swin model (embed 32, window 4) and a
-              narrow CenterMask under ``windowed``
- 11. train_card_vs_cpu  one stage-3 step of a narrow float32 model on the
+              both poolers, a narrow Swin model (embed 32, window 4), a
+              narrow CenterMask under ``windowed``, the R-50-PAFPN model, a
+              narrow ResNeSt-PAFPN cascade mask model, and TTA with masks on
+              a narrow R-50 (merged detections and averaged masks)
+ 14. train_card_vs_cpu  one stage-3 step of a narrow float32 model on the
               card and on the CPU with the same weights, batch and subsample
               keys: losses and trainable gradients must agree
- 12. stage12_card_vs_cpu  one step of stage 1 and one of stage 2 at the CPU
+ 15. stage12_card_vs_cpu  one step of stage 1 and one of stage 2 at the CPU
               tests' narrow widths, the same way: metrics, gradients and the
               discriminator's statistics must agree
 
@@ -120,6 +138,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import importlib.util
 import json
 import subprocess
@@ -275,7 +294,7 @@ def median_ms(fn, iters=10, warmup=2, inner=4):
     return float(np.median(times))
 
 
-def compare(name, got, want, kind, dtype_name):
+def compare(name, got, want, kind, dtype_name, quiet=False):
     import torch
 
     got = got.float()
@@ -288,8 +307,9 @@ def compare(name, got, want, kind, dtype_name):
     scale = float(want.abs().max())
     rel, ab = TOL[(kind, dtype_name)]
     bound = rel * scale + ab
-    log(f"  {name}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
-        f"rel={err / max(scale, 1e-30):.3e} bound={bound:.3e}")
+    if not quiet or not err <= bound:
+        log(f"  {name}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
+            f"rel={err / max(scale, 1e-30):.3e} bound={bound:.3e}")
     if not err <= bound:
         raise AssertionError(f"{name}: max_abs_err {err} > {bound}")
     return err
@@ -634,6 +654,66 @@ def generator_levels(strict=True):
                         f"kernel, got {counts}, ATen kernels {aten}, device trace {kernels}")
 
 
+def _pool_work(feats, b, n, p, s):
+    """(bytes, operations) of one pooler call over b x n ROIs: 4 corner
+    reads per sample, but no more than the maps themselves; the float32
+    output; the boxes and levels; 8 float32 operations per sample and
+    channel (4 taps, a multiply-add each)."""
+    c = feats[0].shape[-1]
+    samples = b * n * p * p * s * s
+    read = min(4 * samples * c, sum(f.numel() for f in feats)) * feats[0].element_size()
+    return read + b * n * p * p * c * 4 + b * n * 20, 2 * 4 * samples * c
+
+
+class BoundCapture:
+    """While entered, adds up the least time the card could take for every
+    pooler and NMS launch the code makes, from the launch's own inputs
+    (``_pool_work``, ``_nms_work``): bytes over 3.35 TB/s against float32
+    operations over 67 TFLOP/s, the larger. ``ms`` maps kernel → (bound ms,
+    launches)."""
+
+    def __init__(self):
+        self.ms = {"roi_pool": [0.0, 0], "nms": [0.0, 0]}
+
+    def _add(self, name, nbytes, ops):
+        self.ms[name][0] += 1000 * max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"])
+        self.ms[name][1] += 1
+
+    def __enter__(self):
+        from afigan_tpu_torch.ops import nms
+        from afigan_tpu_torch.ops.kernels import roi_pool
+
+        self._saved = (roi_pool.roi_pool, nms.nms_keep_sorted)
+        pool, keep_sorted = self._saved
+
+        def pool_bound(features, boxes, levels, strides, output_size, sampling_ratio, *a, **k):
+            self._add("roi_pool", *_pool_work(features, boxes.shape[0], boxes.shape[1],
+                                              output_size, sampling_ratio))
+            return pool(features, boxes, levels, strides, output_size, sampling_ratio, *a, **k)
+
+        def nms_bound(boxes, valid, order, *a, **k):
+            keep = keep_sorted(boxes, valid, order, *a, **k)
+            nbytes = ops = 0
+            for i in range(boxes.shape[0]):
+                w = _nms_work(valid[i][order[i]], keep[i], boxes.shape[1])
+                nbytes, ops = nbytes + w[0], ops + w[1]
+            self._add("nms", nbytes, ops)
+            return keep
+
+        roi_pool.roi_pool, nms.nms_keep_sorted = pool_bound, nms_bound
+        return self
+
+    def __exit__(self, *exc):
+        from afigan_tpu_torch.ops import nms
+        from afigan_tpu_torch.ops.kernels import roi_pool
+
+        roi_pool.roi_pool, nms.nms_keep_sorted = self._saved
+
+    def log(self, what):
+        log(f"  {what}: bound of its launches (their own inputs) " + ", ".join(
+            f"{k} {ms:.4f} ms over {n} launches" for k, (ms, n) in self.ms.items()))
+
+
 def kernels_roi_pool(results):
     import torch
 
@@ -667,13 +747,8 @@ def kernels_roi_pool(results):
             log(f"  roi_pool {tag}: kernel {tk:.3f} ms plain {tp:.3f} ms")
             if path is None:
                 continue
-            # what this run's boxes need: 4 corner reads per sample, but no
-            # more than the maps themselves; the float32 output; the boxes
-            samples = B * n * p * p * S * S
-            read = min(4 * samples * c, sum(f.numel() for f in feats)) * ELT[dtype_name]
-            nbytes = read + B * n * p * p * c * 4 + B * n * 20
             tally(results, "roi_pool", path, dtype_name).add(
-                tk, tp, nbytes, 2 * 4 * samples * c, "float32", e, count)
+                tk, tp, *_pool_work(feats, B, n, p, S), "float32", e, count)
 
 
 def bwd_without_atomics(build):
@@ -1301,11 +1376,16 @@ def run_batches(name, cfg, batches, per_batch=None):
 def run_slice(results, path, make_cfg, canvas, per_batch, n_batches):
     """One model at full width under the two traffics. The first, its config
     as is, is the path's main run: its launch counts go into the result."""
+    from afigan_tpu_torch.engine.inference import predict
+
     rng = np.random.RandomState(0)
     batches = [random_batch(rng, 2, canvas, SIZES) for _ in range(n_batches + 1)]
     # random weights score no class above the 0.05 threshold, so every image
     # has 0 detections
     model, _, counts = run_batches(path, make_cfg(), batches, per_batch)
+    with BoundCapture() as bounds:
+        predict(model, batches[-1])
+    bounds.log(f"{path}, one batch")
     for k, v in counts.items():
         results[k].setdefault("launches", {})[path] = v // len(batches)
         if per_batch.get(k, 0) and v <= 0:
@@ -1630,6 +1710,282 @@ def phase_nms_ab(results):
            CENTERMASK_PER_BATCH["nms"])
 
 
+# ---------------------------------------------------------------------------
+# the breadth slice: PAFPN, ResNeSt, test-time augmentation
+# ---------------------------------------------------------------------------
+
+# a cascade of 3 box stages: 3 box pools and 1 mask pool a batch; the
+# pyramids call the generator 3 times (FPN and PAFPN alike)
+RESNEST_PER_BATCH = dict(R50_PER_BATCH, roi_pool=4)
+
+
+def phase_slice_pafpn(results, n_batches=10):
+    from afigan_tpu_torch.config import cfg_from_yaml
+
+    run_slice(results, "r50_pafpn", lambda: cfg_from_yaml(
+        "inference/AFI-GAN_maskrcnn_R_50_PAFPN.yaml"), R50_CANVAS, R50_PER_BATCH, n_batches)
+
+
+def phase_slice_resnest(results, n_batches=10):
+    from afigan_tpu_torch.config import cfg_from_yaml
+    from afigan_tpu_torch.data import choose_bucket, required_size_divisibility
+
+    for path, pyramid in (("resnest_fpn", "FPN"), ("resnest_pafpn", "PAFPN")):
+        make = functools.partial(
+            cfg_from_yaml, f"inference/AFI-GAN_cascade_mask_rcnn_ResNeSt101_{pyramid}.yaml")
+        cfg = make()
+        # SIZES are images resized to the YAML's MIN_SIZE_TEST / MAX_SIZE_TEST
+        if (cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST) != (800, 1333):
+            raise AssertionError(f"{path}: test sizes {cfg.INPUT.MIN_SIZE_TEST}, "
+                                 f"{cfg.INPUT.MAX_SIZE_TEST}")
+        canvas = choose_bucket(max(h for h, _ in SIZES), max(w for _, w in SIZES),
+                               cfg.TPU.IMAGE_BUCKETS, required_size_divisibility(cfg))
+        log(f"  {path}: depth {cfg.MODEL.RESNETS.DEPTH}, radix {cfg.MODEL.RESNETS.RADIX}, "
+            f"norm {cfg.MODEL.RESNETS.NORM}, canvas {canvas[0]}x{canvas[1]}")
+        run_slice(results, path, make, canvas, RESNEST_PER_BATCH, n_batches)
+
+
+class HeldKernels:
+    """While entered, every launch of the model's kernels (the generator's
+    two one-call entries, the pooler, LayerNorm, window attention, NMS) is
+    also computed by its plain version on the same inputs and the two are
+    compared: the tolerances of TOL (NMS entry for entry, up to the walk's
+    stop). The plain calls launch nothing."""
+
+    KINDS = {"afi_chain": "gen", "afi_upsample": "gen", "roi_pool": "pool",
+             "layer_norm": "ln", "window_attention": "attn"}
+
+    def __init__(self, dtype_name):
+        self.dtype_name = dtype_name
+        self.err = {}    # kernel → max error
+        self.calls = {}  # kernel → calls compared
+
+    def _held(self, name, kernel, plain, drop=()):
+        def call(*a, **k):
+            import torch
+
+            got = kernel(*a, **k)
+            want = plain(*a, **{n: v for n, v in k.items() if n not in drop})
+            if name == "nms":
+                # the walk stops at the stop_after-th kept box; the plain
+                # loop leaves what follows unresolved
+                stop = a[4] if len(a) > 4 else k.get("stop_after", 0)
+                n = got.shape[1]
+                upto = n if stop <= 0 else min(
+                    n, int((got.int().cumsum(dim=1) < stop).sum(dim=1).max()) + 1)
+                if not torch.equal(got[:, :upto], want[:, :upto]):
+                    raise AssertionError("nms: the kernel's keep mask differs from the "
+                                         "plain loop's")
+                err = 0.0
+            else:
+                err = compare(f"{name} held", got, want, self.KINDS[name], self.dtype_name,
+                              quiet=True)
+            self.err[name] = max(self.err.get(name, 0.0), err)
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return got
+        return call
+
+    def __enter__(self):
+        from afigan_tpu_torch.models import swin
+        from afigan_tpu_torch.models.afi import generator
+        from afigan_tpu_torch.ops import nms
+        from afigan_tpu_torch.ops.kernels import afi_generator as ag
+        from afigan_tpu_torch.ops.kernels import layer_norm, roi_pool, window_attention
+        from afigan_tpu_torch.ops.kernels.nms import nms_keep_sorted_plain
+
+        self._saved = [(generator, "fused_generator_chain"), (generator, "fused_upsample"),
+                       (roi_pool, "roi_pool"), (swin, "fused_layer_norm"),
+                       (swin, "fused_window_attention"), (nms, "nms_keep_sorted")]
+        self._saved = [(m, n, getattr(m, n)) for m, n in self._saved]
+        generator.fused_generator_chain = self._held(
+            "afi_chain", ag.fused_generator_chain, ag.fused_generator_chain_plain, ("laid",))
+        generator.fused_upsample = self._held("afi_upsample", ag.fused_upsample,
+                                              ag.fused_upsample_plain, ("laid",))
+        roi_pool.roi_pool = self._held("roi_pool", roi_pool.roi_pool, roi_pool.roi_pool_plain)
+        swin.fused_layer_norm = self._held("layer_norm", layer_norm.fused_layer_norm,
+                                           layer_norm.fused_layer_norm_plain)
+        swin.fused_window_attention = self._held(
+            "window_attention", window_attention.fused_window_attention,
+            window_attention.fused_window_attention_plain)
+        nms.nms_keep_sorted = self._held("nms", nms.nms_keep_sorted, nms_keep_sorted_plain)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self._saved:
+            setattr(m, n, f)
+
+
+def write_coco(root, n_img, hw, seed, num_classes):
+    """A COCO-format set on disk: ``n_img`` random-pixel JPEGs of ``hw``,
+    ``num_classes`` categories (the model's) and one 64x48 box an image of
+    the first: (json path, image directory)."""
+    from PIL import Image
+
+    img_dir = Path(root) / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    images, anns = [], []
+    for i in range(n_img):
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            img_dir / f"{i}.jpg", quality=95)
+        images.append({"id": i + 1, "file_name": f"{i}.jpg", "height": h, "width": w})
+        x, y = float(w // 4), float(h // 4)
+        anns.append({"id": i + 1, "image_id": i + 1, "category_id": 1,
+                     "bbox": [x, y, 64.0, 48.0], "area": 64.0 * 48.0, "iscrowd": 0,
+                     "segmentation": [[x, y, x + 64, y, x + 64, y + 48, x, y + 48]]})
+    path = Path(root) / "instances.json"
+    path.write_text(json.dumps({"images": images, "annotations": anns, "categories": [
+        {"id": c + 1, "name": f"class{c}"} for c in range(num_classes)]}))
+    return str(path), str(img_dir)
+
+
+class TTACounts:
+    """While entered, counts the TTA module's model passes (and images per
+    pass), the peak memory and the synchronized host time of each canvas's
+    passes, and its merge NMS calls."""
+
+    def __init__(self):
+        self.passes = []      # (canvas, images in the pass, ms)
+        self.peak = {}        # canvas → peak bytes of its passes
+        self.merges = 0
+
+    def __enter__(self):
+        import torch
+
+        from afigan_tpu_torch.engine import tta
+
+        self._saved = (tta._forward, tta.batched_nms_padded)
+        forward, merge = self._saved
+
+        def counted_forward(model, images, sizes, *a):
+            canvas = tuple(images.shape[1:3])
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = forward(model, images, sizes, *a)
+            torch.cuda.synchronize()
+            self.peak[canvas] = max(self.peak.get(canvas, 0), torch.cuda.max_memory_allocated())
+            self.passes.append((canvas, len(images), 1000 * (time.perf_counter() - t0)))
+            return out
+
+        def counted_merge(*a, **k):
+            self.merges += 1
+            return merge(*a, **k)
+
+        tta._forward, tta.batched_nms_padded = counted_forward, counted_merge
+        return self
+
+    def __exit__(self, *exc):
+        from afigan_tpu_torch.engine import tta
+
+        tta._forward, tta.batched_nms_padded = self._saved
+
+
+# one pass of the flagship through TTA: batch 1, the Swin-BiFPN-Cascade
+# launches of a forward; NMS one call for the proposals and one for the
+# detections of its one image
+TTA_PER_PASS = dict(SWIN_PER_BATCH, nms=2)
+# the wrapper calls behind those launches (a generator call is one call of
+# each of its two entries)
+TTA_CALLS_PER_PASS = {"afi_chain": 28, "afi_upsample": 28, "roi_pool": 3, "layer_norm": 55,
+                      "window_attention": 24, "nms": 2}
+TTA_IMAGES, TTA_HW = 2, (480, 640)
+
+
+def phase_tta(results):
+    """The flagship YAML unchanged (Swin-L, BiFPN x7, Cascade R-CNN; 9 scales
+    x flip) through the port's ``run_tta_inference`` over an on-disk COCO set
+    of 2 random-pixel 480x640 images, bf16, weights from a seeded generator."""
+    import torch
+
+    from afigan_tpu_torch.config import cfg_from_yaml
+    from afigan_tpu_torch.data.coco import CocoDataset, read_image
+    from afigan_tpu_torch.data.transforms import test_transform
+    from afigan_tpu_torch.engine import tta
+    from afigan_tpu_torch.models import build_model
+    from afigan_tpu_torch.ops.image_list import pad_to_canvas
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    cfg = cfg_from_yaml("inference/AFI-GAN_cascade_rcnn_swinL_BiFPN_ST_TTA.yaml")
+    aug = cfg.TEST.AUG
+    if not (aug.ENABLED and aug.FLIP and len(aug.MIN_SIZES) == 9):
+        raise AssertionError(f"the TTA YAML: {aug}")
+    json_path, img_dir = write_coco(Path("output") / "chip_smoke_tta", TTA_IMAGES, TTA_HW, 0,
+                                    cfg.MODEL.ROI_HEADS.NUM_CLASSES)
+    dataset = CocoDataset(json_path, img_dir)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    log(f"  tta: Swin-L model built in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M params, "
+        f"compute dtype {model.dtype}, TTA_BATCH {cfg.TPU.TTA_BATCH}")
+    canvases = []
+    for min_size in aug.MIN_SIZES:
+        tf = test_transform(*TTA_HW, min_size, aug.MAX_SIZE)
+        canvases.append(tta._canvas(cfg, tf.new_h, tf.new_w))
+    log(f"  tta: canvases by scale {[f'{h}x{w}' for h, w in canvases]}")
+    # every canvas once, so that the timed run below meets none for the first time
+    with torch.inference_mode():
+        for h, w in sorted(set(canvases)):
+            tta._forward(model, np.zeros((1, h, w, 3), np.float32), [[h, w]])
+    torch.cuda.synchronize()
+    reset_launches()
+    with TTACounts() as counts, NMSRoute() as route:
+        t0 = time.perf_counter()
+        res = tta.run_tta_inference(cfg, model, dataset)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = dict(LAUNCHES)
+    passes = len(counts.passes)
+    log(f"  tta: {wall:.2f} s for {TTA_IMAGES} images, {wall / TTA_IMAGES:.3f} s per image; "
+        f"{passes / TTA_IMAGES:.0f} passes per image, {counts.merges} merge NMS calls; "
+        f"bbox AP {res['bbox']['AP']:.3f} (random weights)")
+    log(f"  tta: launches in the run {json.dumps(launched)}; {route.calls} NMS calls, "
+        f"{route.plain_on_card} of them by the plain loop")
+    largest = max(counts.peak, key=lambda c: c[0] * c[1])
+    for c in sorted(counts.peak):
+        ms = [t for cv, _, t in counts.passes if cv == c]
+        log(f"  tta: canvas {c[0]}x{c[1]}: {len(ms)} passes, {np.median(ms):.1f} ms a pass "
+            f"(median; min {min(ms):.1f}, max {max(ms):.1f}; host clock from the images "
+            f"on the host to the detections on the card, synchronized), peak memory "
+            f"{counts.peak[c] / 2**30:.2f} GiB")
+    if passes != 2 * len(aug.MIN_SIZES) * TTA_IMAGES or any(n != 1 for _, n, _ in counts.passes):
+        raise AssertionError(f"tta: {passes} passes {counts.passes[:4]}..., expected 18 an "
+                             "image of one image each")
+    if counts.merges != TTA_IMAGES:
+        raise AssertionError(f"tta: {counts.merges} merge NMS calls for {TTA_IMAGES} images")
+    for k, n in TTA_PER_PASS.items():
+        want = n * passes + (counts.merges if k == "nms" else 0)
+        if launched[k] != want:
+            raise AssertionError(f"tta: {launched[k]} launches of {k}, expected {n} a pass "
+                                 f"x {passes} passes" + (" + the merges" if k == "nms" else ""))
+        results[k].setdefault("launches", {})["tta"] = launched[k] // passes
+    if route.plain_on_card or launched["nms"] != route.calls:
+        raise AssertionError(f"tta: {route.calls} NMS calls, {launched['nms']} launches")
+    log(f"  tta: peak memory at the largest canvas {largest[0]}x{largest[1]}: "
+        f"{counts.peak[largest] / 2**30:.2f} GiB")
+    # one pass at the smallest and at the largest scale, every kernel launch
+    # held against its plain version
+    img = read_image(dataset.records[0]["file_name"], cfg.INPUT.FORMAT)
+    for min_size in (min(aug.MIN_SIZES), max(aug.MIN_SIZES)):
+        resized = test_transform(*TTA_HW, min_size, aug.MAX_SIZE).apply_image(img)
+        rh, rw = resized.shape[:2]
+        canvas = tta._canvas(cfg, rh, rw)
+        padded = pad_to_canvas(resized.astype(np.float32), canvas)
+        with HeldKernels("bfloat16") as held, BoundCapture() as bounds:
+            dets, _ = tta._forward(model, padded[None], [[rh, rw]])
+            torch.cuda.synchronize()
+        bounds.log(f"tta pass at min size {min_size}")
+        check_outputs(dets, None, 1, cfg.TEST.DETECTIONS_PER_IMAGE, None)
+        log(f"  tta pass at min size {min_size} ({canvas[0]}x{canvas[1]}): kernels held "
+            f"against their plain versions, calls {json.dumps(held.calls)}, max errors "
+            + json.dumps({k: float(f"{v:.3e}") for k, v in held.err.items()}))
+        if held.calls != TTA_CALLS_PER_PASS:
+            raise AssertionError(f"tta held pass: calls {held.calls}, expected "
+                                 f"{TTA_CALLS_PER_PASS}")
+    del model
+    torch.cuda.empty_cache()
+
+
 # the models' record_function ranges: their GPU spans (first to last kernel,
 # idle gaps included) are not device work
 RANGES = ("backbone", "afi_generator", "rpn", "roi_heads", "fcos_head", "fcos_decode",
@@ -1926,6 +2282,9 @@ def phase_train(results):
         steps.append(m)
     counts = dict(LAUNCHES)
     n = len(steps)
+    with BoundCapture() as bounds:  # one more step: the bounds of its launches
+        train_step(cfg, trainer.state, inputs, trainer.sampling)
+    bounds.log("train, one step")
     log(f"  train: launches in {n} steps " + _json.dumps(counts))
     for k, per in TRAIN_PER_STEP.items():
         if counts[k] != per * n:
@@ -2292,6 +2651,10 @@ def gan_phase(results, stage):
     counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = len(steps)
+    if not s1:  # one more step: the bounds of its launches
+        with BoundCapture() as bounds:
+            step()
+        bounds.log(f"{stage}, one step")
     log(f"  {stage}: launches in {n} steps " + _json.dumps(counts))
     per_step = STAGE1_PER_STEP if s1 else STAGE2_PER_STEP
     for k, per in per_step.items():
@@ -2537,17 +2900,27 @@ def narrow_centermask_cfg():
     return cfg
 
 
-def card_vs_cpu(name, cfg, canvas, size):
-    import torch
+def narrow_resnest_cfg():
+    """The ResNeSt-PAFPN cascade mask YAML at narrow widths: depth 50 (the
+    deep stem's smallest), res2 32 channels, width 8 a group, the pyramid, box
+    and mask heads at 32 channels, growth 8, 3 classes; SyncBN everywhere."""
+    from afigan_tpu_torch.config import cfg_from_yaml
 
-    from afigan_tpu_torch.engine.inference import predict
-    from afigan_tpu_torch.models import build_model
-    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    cfg = cfg_from_yaml("inference/AFI-GAN_cascade_mask_rcnn_ResNeSt101_PAFPN.yaml")
+    cfg.merge_from_list([
+        "MODEL.RESNETS.DEPTH", "50", "MODEL.RESNETS.RES2_OUT_CHANNELS", "32",
+        "MODEL.RESNETS.WIDTH_PER_GROUP", "8", "MODEL.FPN.OUT_CHANNELS", "32",
+        "MODEL.AFI.GROWTH_RATE", "8", "MODEL.ROI_BOX_HEAD.CONV_DIM", "32",
+        "MODEL.ROI_BOX_HEAD.FC_DIM", "64", "MODEL.ROI_MASK_HEAD.CONV_DIM", "32",
+        "MODEL.ROI_HEADS.NUM_CLASSES", "3"])
+    return cfg
 
+
+def golden_settings(cfg):
+    """tests/test_golden_regression.py's test-time settings, float32."""
     cfg.TPU.COMPUTE_DTYPE = "float32"
-    # tests/test_golden_regression.py's test-time settings: normalised inputs
-    # so random weights give non-degenerate detections, every class scored,
-    # 128/64 proposals and 16 detections. With random weights most scores
+    # normalised inputs so random weights give non-degenerate detections,
+    # every class scored, 128/64 proposals and 16 detections. With random weights most scores
     # tie to ~1e-7 (one dominant class); at 1000 proposals / 100 detections
     # a 1e-6 relative weight perturbation already reorders detection slots
     # on the CPU alone, so that setting cannot tell kernels from noise.
@@ -2559,6 +2932,17 @@ def card_vs_cpu(name, cfg, canvas, size):
     cfg.MODEL.FCOS.INFERENCE_TH_TEST = 0.0
     cfg.MODEL.FCOS.PRE_NMS_TOPK_TEST = 128
     cfg.MODEL.FCOS.POST_NMS_TOPK_TEST = 16
+    return cfg
+
+
+def card_vs_cpu(name, cfg, canvas, size):
+    import torch
+
+    from afigan_tpu_torch.engine.inference import predict
+    from afigan_tpu_torch.models import build_model
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    golden_settings(cfg)
     cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     gpu = build_model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict(), strict=True)
@@ -2590,9 +2974,98 @@ def card_vs_cpu(name, cfg, canvas, size):
     return launched
 
 
+def tta_capture(fn):
+    """``fn()`` (a ``run_tta_inference``) with the evaluator's predictions and
+    the averaged mask probabilities it pastes captured: (results,
+    predictions, [(probabilities, valid)] an image)."""
+    from afigan_tpu_torch.engine import tta
+    from afigan_tpu_torch.evaluation import CocoEvaluator
+
+    seen = {"masks": []}
+    evaluate, paste = CocoEvaluator.evaluate, tta.paste_masks
+
+    def capture_eval(self):
+        seen["preds"] = list(self.predictions)
+        return evaluate(self)
+
+    def capture_paste(masks, boxes, valid, *a, **k):
+        seen["masks"].append((np.asarray(masks), np.asarray(valid)))
+        return paste(masks, boxes, valid, *a, **k)
+
+    CocoEvaluator.evaluate, tta.paste_masks = capture_eval, capture_paste
+    try:
+        return fn(), seen["preds"], seen["masks"]
+    finally:
+        CocoEvaluator.evaluate, tta.paste_masks = evaluate, paste
+
+
+def card_vs_cpu_tta():
+    """Test-time augmentation with MASK_ON on a narrow R-50 Mask R-CNN (an
+    eighth of the widths), 2 random-pixel 120x160 images at min sizes 96 and
+    128 with flips, on the card and on the CPU with the same weights (the box
+    regression and mask predictors scaled up 30x and the class scores 3x, so
+    that merged boxes, masks and scores depend on the features and the merge
+    meets no tie): merged detections at the golden tolerances, each averaged
+    mask's probability sum at 5e-3 relative, AP 1e-3."""
+    import torch
+
+    from afigan_tpu_torch.config import main_path_cfg
+    from afigan_tpu_torch.data.coco import CocoDataset
+    from afigan_tpu_torch.engine import tta
+    from afigan_tpu_torch.models import build_model
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    cfg = golden_settings(main_path_cfg())
+    cfg.merge_from_list([
+        "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.RESNETS.STEM_OUT_CHANNELS", "16",
+        "MODEL.RESNETS.WIDTH_PER_GROUP", "8", "MODEL.FPN.OUT_CHANNELS", "32",
+        "MODEL.AFI.GROWTH_RATE", "8", "MODEL.ROI_BOX_HEAD.FC_DIM", "64",
+        "MODEL.ROI_MASK_HEAD.CONV_DIM", "32", "MODEL.ROI_HEADS.NUM_CLASSES", "3",
+        "TEST.AUG.ENABLED", "True", "TEST.AUG.MIN_SIZES", "(96, 128)",
+        "TEST.AUG.MAX_SIZE", "256", "TEST.AUG.FLIP", "True",
+        "TPU.IMAGE_BUCKETS", "((128, 256),)"])
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for k, p in cpu.named_parameters():
+            if k.endswith(("bbox_pred.weight", "mask_head.predictor.weight")):
+                p.mul_(30.0)
+            elif k.endswith("cls_score.weight"):
+                p.mul_(3.0)
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    dataset = CocoDataset(*write_coco(Path("output") / "chip_smoke_tta_small", 2, (120, 160), 1,
+                                      cfg.MODEL.ROI_HEADS.NUM_CLASSES))
+    reset_launches()
+    got = tta_capture(lambda: tta.run_tta_inference(cfg, gpu, dataset))
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    want = tta_capture(lambda: tta.run_tta_inference(cfg, cpu, dataset))
+    (res_g, preds_g, masks_g), (res_w, preds_w, masks_w) = got, want
+    if len(preds_g) != len(preds_w) or not preds_w:
+        raise AssertionError(f"tta card vs cpu: {len(preds_g)} vs {len(preds_w)} detections")
+    db = ds = 0.0
+    for g, w in zip(preds_g, preds_w):
+        if (g["image_id"], g["category_id"]) != (w["image_id"], w["category_id"]):
+            raise AssertionError(f"tta card vs cpu: {g} vs {w}")
+        db = max(db, float(np.abs(np.asarray(g["bbox"]) - np.asarray(w["bbox"])).max()))
+        ds = max(ds, abs(g["score"] - w["score"]))
+    dm = 0.0
+    for (mg, vg), (mw, vw) in zip(masks_g, masks_w):
+        np.testing.assert_array_equal(vg, vw, "merged valid")
+        sg, sw = mg[vg].sum(axis=(1, 2)), mw[vw].sum(axis=(1, 2))
+        np.testing.assert_allclose(sg, sw, rtol=5e-3, atol=0, err_msg="averaged mask sums")
+        dm = max(dm, float(np.abs(sg / sw - 1).max()))
+    dap = max(abs(res_g[t]["AP"] - res_w[t]["AP"]) for t in res_w)
+    log(f"  card_vs_cpu tta r50 mask: {len(preds_w)} merged detections equal in image and "
+        f"class; max |d box| {db:.2e} px, |d score| {ds:.2e}, |d mask sum| {dm:.2e} "
+        f"relative, |d AP| {dap:.2e}; launches on the card {json.dumps(launched)}")
+    if db > 0.05 or ds > 1e-3 or dap > 1e-3 or len(masks_g) != 2:
+        raise AssertionError("tta card vs cpu: outside the golden tolerances")
+    return launched
+
+
 @tf32_off()
 def phase_card_vs_cpu(results):
-    from afigan_tpu_torch.config import main_path_cfg
+    from afigan_tpu_torch.config import cfg_from_yaml, main_path_cfg
 
     def need(launched, name, kernels):
         for k in kernels:
@@ -2612,6 +3085,13 @@ def phase_card_vs_cpu(results):
     need(card_vs_cpu("narrow centermask windowed", narrow_centermask_cfg(), (128, 256),
                      (120, 250)), "narrow CenterMask",
          ("window_gather", "roi_pool", "afi_chain", "afi_upsample", "nms"))
+    need(card_vs_cpu("r50 pafpn", cfg_from_yaml("inference/AFI-GAN_maskrcnn_R_50_PAFPN.yaml"),
+                     (320, 320), (288, 320)), "R-50-PAFPN",
+         ("roi_pool", "afi_chain", "afi_upsample", "nms"))
+    need(card_vs_cpu("narrow resnest pafpn cascade mask", narrow_resnest_cfg(), (128, 256),
+                     (120, 250)), "narrow ResNeSt", ("roi_pool", "afi_chain", "afi_upsample",
+                                                     "nms"))
+    need(card_vs_cpu_tta(), "TTA R-50", ("roi_pool", "afi_chain", "afi_upsample", "nms"))
 
 
 def main():
@@ -2648,6 +3128,8 @@ def main():
     for name, phase in (("kernels", phase_kernels), ("slice", phase_slice),
                         ("slice_swin", phase_slice_swin),
                         ("slice_centermask", phase_slice_centermask),
+                        ("slice_pafpn", phase_slice_pafpn),
+                        ("slice_resnest", phase_slice_resnest), ("tta", phase_tta),
                         ("nms_ab", phase_nms_ab), ("train", phase_train),
                         ("stage1", phase_stage1), ("stage2", phase_stage2),
                         ("card_vs_cpu", phase_card_vs_cpu),

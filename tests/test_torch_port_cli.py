@@ -1,10 +1,11 @@
 """The port's eval CLI against the JAX CLI's contract.
 
-``python -m afigan_tpu_torch.run_net`` refuses a config with
-``TEST.AUG.ENABLED`` (the JAX CLI runs test-time augmentation there, which
-the port does not have yet) before it builds any model, and it verifies
+``python -m afigan_tpu_torch.run_net`` runs test-time augmentation
+(``engine/tta.py::run_tta_inference``) for a config with ``TEST.AUG.ENABLED``,
+as the JAX CLI does, and plain inference otherwise; either way it verifies
 ``TEST.EXPECTED_RESULTS`` after inference with the port's own copy of
 ``verify_results``, which must behave as the JAX package's on the same rows.
+Every inference YAML of the repo builds in the port at full width.
 """
 
 import math
@@ -54,21 +55,64 @@ def test_verify_results_equals_jax(case):
         assert got == ("returned", False)
 
 
-def test_tta_config_raises_before_any_model_is_built(monkeypatch):
+def test_tta_config_runs_tta_inference_then_verifies(monkeypatch):
+    """The flagship TTA YAML goes to ``run_tta_inference`` (not the
+    single-scale ``run_inference``) with the built model, and its results to
+    ``verify_results``."""
     from afigan_tpu_torch.data import coco
+    from afigan_tpu_torch.engine import inference, testing, tta
     from afigan_tpu_torch.models import build
 
-    def refuse(*a, **k):
-        raise AssertionError("reached past the TTA check")
+    calls = []
 
-    monkeypatch.setattr(build, "build_model", refuse)
-    monkeypatch.setattr(coco, "register_default_datasets", refuse)
+    def refuse(*a, **k):
+        raise AssertionError("single-scale inference under TEST.AUG.ENABLED")
+
+    def fake_tta(cfg, model, dataset):
+        calls.append(("tta", cfg.TEST.AUG.MIN_SIZES, cfg.TEST.AUG.FLIP, model))
+        return {"bbox": {"AP": 57.3}}
+
+    model = object()
+    monkeypatch.setattr(coco, "register_default_datasets", lambda root: None)
+    monkeypatch.setattr(coco, "get_dataset", lambda name: [])
+    monkeypatch.setattr(build, "build_model", lambda cfg, device, generator: model)
+    monkeypatch.setattr(inference, "run_inference", refuse)
+    monkeypatch.setattr(tta, "run_tta_inference", fake_tta)
+    monkeypatch.setattr(testing, "verify_results",
+                        lambda cfg, results: calls.append(("verify", results)))
     args = run_net.parse_args([
         "--config-file",
         os.path.join(REPO, "configs/inference/AFI-GAN_cascade_rcnn_swinL_BiFPN_ST_TTA.yaml"),
         "--eval-only", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        run_net.main(args)
+    assert run_net.main(args) == {"bbox": {"AP": 57.3}}
+    sizes = (400, 500, 600, 700, 800, 900, 1000, 1100, 1200)
+    assert calls == [("tta", sizes, True, model), ("verify", {"bbox": {"AP": 57.3}})]
+
+
+INFERENCE_YAMLS = sorted(os.listdir(os.path.join(REPO, "configs", "inference")))
+
+
+@pytest.mark.parametrize("yaml", INFERENCE_YAMLS)
+def test_every_inference_yaml_builds_at_full_width(yaml):
+    """``build_model(cfg, device="cpu")`` at the YAML's own widths, depths and
+    heads: none of the nine raises."""
+    import torch
+
+    from afigan_tpu_torch.config import cfg_from_yaml
+    from afigan_tpu_torch.models import build_model
+
+    assert len(INFERENCE_YAMLS) == 9
+    cfg = cfg_from_yaml(f"inference/{yaml}")
+    with torch.no_grad():
+        model = build_model(cfg, device="cpu")
+    assert not model.training
+    n = sum(p.numel() for p in model.parameters())
+    assert n > 2e7, n
+    if "ResNeSt101" in yaml:
+        assert len(model.backbone.bottom_up.res4) == 23
+        assert model.roi_heads.mask_head.mask_fcn1.norm is not None
+    if "PAFPN" in yaml:
+        assert type(model.backbone).__name__ == "PAFPN"
 
 
 def test_cli_verifies_expected_results(monkeypatch):

@@ -36,7 +36,7 @@ SUBPACKAGES = ["afigan_tpu_torch." + m for m in (
     "engine.stage3", "engine.events", "engine.train_loop", "engine.checkpoint",
     "engine.trainers", "data.dataset_mapper", "stage3_train", "tools.frozen_bn",
     "models.afi.discriminator", "engine.stage1", "engine.stage2", "stage1_train",
-    "stage2_train")]
+    "stage2_train", "models.pafpn", "models.resnest", "engine.tta")]
 
 
 def _violations(path):
