@@ -19,11 +19,15 @@ import numpy as np
 from . import coco, transforms
 
 
-def required_size_divisibility(cfg) -> int:
+def required_size_divisibility(cfg, dual_scale: bool = False) -> int:
     """Canvas divisibility the model family needs: BiFPN carries a
     stride-128 p7 and exact-2x up/down paths between levels, so 128; the
-    FPN families (p6 top) 64."""
-    return 128 if "bifpn" in cfg.MODEL.BACKBONE.NAME.lower() else 64
+    FPN families (p6 top) 64. ``dual_scale`` (stages 1-2): the detector sees
+    the half canvas, so a BiFPN needs the full canvas 256-divisible; the FPN
+    families keep 64."""
+    if "bifpn" in cfg.MODEL.BACKBONE.NAME.lower():
+        return 256 if dual_scale else 128
+    return 64
 
 
 def choose_bucket(h: int, w: int, buckets: Sequence[Sequence[int]],
@@ -120,7 +124,7 @@ def build_train_loader(cfg, dataset, seed: int = 0, dual_scale: bool = False
         raise NotImplementedError(f"DATALOADER.SAMPLER_TRAIN {cfg.DATALOADER.SAMPLER_TRAIN!r} "
                                   "is not ported yet")
     mapper = DatasetMapper(cfg, is_train=True, seed=seed, dual_scale=dual_scale)
-    div = required_size_divisibility(cfg)
+    div = required_size_divisibility(cfg, dual_scale)
     sampler = iter(TrainingSampler(len(dataset.records), seed))
     while True:
         idxs = [next(sampler) for _ in range(cfg.SOLVER.IMS_PER_BATCH)]

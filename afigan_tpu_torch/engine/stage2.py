@@ -1,10 +1,12 @@
 """Stage 2: multi-scale AF-extractor training on one device (counterpart of
 ``afigan_tpu/engine/stage2.py``).
 
-The detector (``GeneralizedRCNN_AFExtractor``: the detector returning its
-pyramid too) trains on the x0.5 images against the x0.5 GT, and its pyramid
-(whose top-down path runs the AF interpolator) is held by the discriminator
-against the frozen guide's full-resolution pyramid resized by half:
+The detector (``GeneralizedRCNN_AFExtractor``, or ``FCOS`` over a BiFPN:
+the detector returning its pyramid too) trains on the x0.5 images against
+the x0.5 GT, and its pyramid (whose top-down path runs the AF interpolator)
+is held by the discriminator against the frozen guide's full-resolution
+pyramid resized by half, on the levels both have (``gan_levels``: p2-p6 for
+the R-CNN FPNs, p3-p7 for a BiFPN):
 
 - "real": each coupled level of the guide on ``image``, in float32, resized to
   (h//2, w//2) with ``antialias=True``. ``jax.image.resize(..., "linear")``,
@@ -23,9 +25,9 @@ against the frozen guide's full-resolution pyramid resized by half:
   detector's clipping, optimizer and schedule step.
 
 The detector is frozen per ``BACKBONE.FREEZE_AT`` and ``MODEL.AFI_FREEZE``
-(FrozenBN statistics are buffers). FCOS / CenterMask step-2 configs raise:
-their losses are not ported (ROADMAP queue 1 item 6d). ``TPU.REMAT`` and
-``TPU.APPROX_TOPK`` are not read.
+(FrozenBN statistics are buffers); its BN / SyncBN norms (a BiFPN's) train
+and move their running statistics in the forward. The guide stays in eval
+mode with frozen norms. ``TPU.REMAT`` and ``TPU.APPROX_TOPK`` are not read.
 """
 
 from __future__ import annotations
@@ -88,22 +90,11 @@ class Stage2State(NamedTuple):
     schedule: object
 
 
-def check_supported(cfg) -> None:
-    """Raise before anything is built for a step-2 config the port cannot
-    train yet."""
-    arch = cfg.MODEL.META_ARCHITECTURE
-    if arch in ("FCOS", "CenterMask"):
-        raise NotImplementedError(
-            f"stage 2 with {arch}: the FCOS losses are not ported yet (ROADMAP queue 1 "
-            "item 6d)")
-
-
 def init_stage2_state(cfg, device="cuda", generator: Optional[torch.Generator] = None
                       ) -> Stage2State:
     """The detector in training mode returning its features, frozen per the
     config, D and the frozen guide, and an optimizer (with its schedule) for
     the detector and one for D, on ``device``; weights from ``generator``."""
-    check_supported(cfg)
     device = check_device(device, "init_stage2_state")
     model = build_model(cfg, device=device, generator=generator, train=True)
     model.return_features = True

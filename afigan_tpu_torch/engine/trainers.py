@@ -7,12 +7,13 @@ the frozen guide (``engine/stage1.py``) on dual-scale batches.
 and ``MODEL.AFI_DIS_WEIGHTS`` D (parameters and statistics); checkpoints go
 to ``G_0/`` and ``D_0/`` under the output directory.
 
-Stage 2, ``AFExtractorTrainer``: the detector returning its pyramid, D and the
-guide (``engine/stage2.py``) on dual-scale batches. ``MODEL.WEIGHTS``
+Stage 2, ``AFExtractorTrainer``: the detector returning its pyramid (an
+R-CNN or FCOS), D and the guide (``engine/stage2.py``) on dual-scale batches. ``MODEL.WEIGHTS``
 initialises the detector, ``MODEL.AFI_GEN_WEIGHTS`` (a stage-1 G) its AF
 interpolator through ``transplant_generator``, ``MODEL.AFI_DIS_WEIGHTS`` D
 without its optimizer state; checkpoints go to ``AFExtractor/`` and
-``Disc/``; ``TEST.EVAL_PERIOD`` evaluates the detector at half resolution.
+``Disc/``; ``TEST.EVAL_PERIOD`` evaluates the detector at half resolution,
+through its own inference (FCOS's for the FCOS YAML).
 
 Stage 3, ``TargetDetectorTrainer``: the plain detector fine-tune with the
 pre-trained AF interpolator. ``MODEL.WEIGHTS`` initialises the detector (an
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from ..data import build_train_loader, coco
-from ..models.build import check_device
+from ..models.build import check_device, trains_batch_norm
 from ..utils.converters import load_state_dict
 from . import stage1, stage2
 from .checkpoint import (remain_only_afi_names, resume, save_checkpoint,
@@ -79,6 +80,19 @@ def load_afi(model: torch.nn.Module, state) -> None:
     every one of them; the rest of the model keeps its weights."""
     model.load_state_dict({k: torch.as_tensor(np.asarray(v))
                            for k, v in remain_only_afi_names(state).items()}, strict=False)
+
+
+def refuse_precise_bn(cfg) -> None:
+    """The JAX trainers recompute the detector's batch-norm statistics every
+    ``TEST.EVAL_PERIOD`` (PreciseBN) when ``TEST.PRECISE_BN.ENABLED`` is set
+    and the model has batch norm that trains; the port has no PreciseBN yet,
+    so it raises there, from the config before anything is built, rather
+    than train on other statistics."""
+    if (cfg.TEST.PRECISE_BN.ENABLED and cfg.TEST.EVAL_PERIOD > 0
+            and trains_batch_norm(cfg)):
+        raise NotImplementedError(
+            "TEST.PRECISE_BN.ENABLED with batch norm that trains: PreciseBN is not ported "
+            "yet (ROADMAP queue 1 #6)")
 
 
 def _set_schedule(scheduler, optimizer, it: int) -> None:
@@ -207,7 +221,7 @@ class AFExtractorTrainer(_Trainer):
     """Stage 2 (ref stage2_trainer.py)."""
 
     def __init__(self, cfg, device="cuda"):
-        stage2.check_supported(cfg)
+        refuse_precise_bn(cfg)
         super().__init__(cfg, device)
         self.state = stage2.init_stage2_state(cfg, self.device,
                                               torch.Generator().manual_seed(self.seed))
@@ -265,6 +279,7 @@ class TargetDetectorTrainer(_Trainer):
     """Stage 3 (ref stage3_trainer.py)."""
 
     def __init__(self, cfg, device="cuda"):
+        refuse_precise_bn(cfg)
         super().__init__(cfg, device)
         seed = self.seed
         self.state = init_stage3_state(cfg, self.device, torch.Generator().manual_seed(seed))

@@ -1,4 +1,4 @@
-"""BiFPN with AF-interpolator upsampling, inference (counterpart of
+"""BiFPN with AF-interpolator upsampling (counterpart of
 ``afigan_tpu/models/bifpn.py``): a p3-p7 pyramid on three bottom-up stages.
 
 As in the JAX package and the reference: the fusion weights are used raw (no
@@ -11,7 +11,9 @@ bottom-up network and is the model's ``backbone``. d2 keys:
 ``bottom_up.*``, ``before_bifpn.{lateral3..5,p4_skip,p5_skip}.{0,1}``,
 ``before_bifpn.top_block.p6.{conv,norm}``,
 ``BiFPNLayer_{l}_conv{i}_{up,down}.{depthwise,pointwise,norm}``,
-``BiFPNLayer_{l}_p{i}_w{1,2}``, ``srf_module.*``.
+``BiFPNLayer_{l}_p{i}_w{1,2}``, ``srf_module.*``. Every norm is built with eps
+1e-3 and flax momentum 0.99 (torch 0.01), which batch norm that trains reads
+(``layers.unfreeze_batch_norms``), as the reference's.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from .afi import AFIGenerator
 from .layers import (Conv2d, SeparableConv, get_norm, init_weight, nearest_upsample_x2,
                      to_nchw, to_nhwc)
 
-BN_EPS = 1e-3  # the reference's BiFPN batch norms
+BN_EPS, BN_MOMENTUM = 1e-3, 0.99  # the reference's BiFPN batch norms (flax momentum)
 
 
 def _maxpool_same_s2(x):
@@ -47,7 +49,7 @@ class _ConvNorm(nn.Module):
     def __init__(self, in_ch, out_ch, norm, device=None):
         super().__init__()
         self.conv = Conv2d(in_ch, out_ch, 1, device=device)
-        n = get_norm(norm, out_ch, BN_EPS)
+        n = get_norm(norm, out_ch, BN_EPS, BN_MOMENTUM)
         self.norm = None if n is None else n.to(device)
 
     def forward(self, x):
@@ -58,7 +60,7 @@ class _ConvNorm(nn.Module):
 def _lateral(in_ch, out_ch, norm, device):
     """1x1 conv (bias) + norm under the keys ``0`` and ``1``."""
     mods = [Conv2d(in_ch, out_ch, 1, device=device)]
-    n = get_norm(norm, out_ch, BN_EPS)
+    n = get_norm(norm, out_ch, BN_EPS, BN_MOMENTUM)
     if n is not None:
         mods.append(n.to(device))
     return nn.Sequential(*mods)
@@ -97,15 +99,16 @@ class BiFPN(nn.Module):
         self.interp = interp
         self.before_bifpn = BeforeBiFPN([in_channels[f] for f in self.in_features],
                                         out_channels, norm, device)
+        sep = dict(norm=norm, bn_eps=BN_EPS, bn_momentum=BN_MOMENTUM, device=device)
         for l in range(fpn_repeat):
             for idx in (6, 5, 4, 3):
-                self.add_module(f"BiFPNLayer_{l}_conv{idx}_up", SeparableConv(
-                    out_channels, out_channels, norm, BN_EPS, device))
+                self.add_module(f"BiFPNLayer_{l}_conv{idx}_up",
+                                SeparableConv(out_channels, out_channels, **sep))
                 setattr(self, f"BiFPNLayer_{l}_p{idx}_w1",
                         nn.Parameter(torch.ones(2, device=device)))
             for idx in (4, 5, 6, 7):
-                self.add_module(f"BiFPNLayer_{l}_conv{idx}_down", SeparableConv(
-                    out_channels, out_channels, norm, BN_EPS, device))
+                self.add_module(f"BiFPNLayer_{l}_conv{idx}_down",
+                                SeparableConv(out_channels, out_channels, **sep))
                 setattr(self, f"BiFPNLayer_{l}_p{idx}_w2",
                         nn.Parameter(torch.ones(2 if idx == 7 else 3, device=device)))
         if interp == "afi":
@@ -152,7 +155,8 @@ class BiFPN(nn.Module):
             raise ValueError(
                 f"BiFPN needs a 128-divisible input canvas (c5 {tuple(c5.shape[1:3])} "
                 "must be divisible by 4); pad images with "
-                "choose_bucket(..., required_size_divisibility(cfg))")
+                "choose_bucket(..., required_size_divisibility(cfg)); a dual-scale "
+                "stream's full canvas with required_size_divisibility(cfg, dual_scale=True)")
         bb = self.before_bifpn
         p4_skip, p5_skip = bb.p4_skip(c4), bb.p5_skip(c5)
         p6_in = _maxpool_same_s2(bb.top_block.p6(c5))

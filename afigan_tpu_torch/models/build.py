@@ -12,10 +12,10 @@ BiFPN), under ``GeneralizedRCNN`` (or ``GeneralizedRCNN_AFExtractor``, the
 same model returning its features too) with ``StandardROIHeads`` or
 ``CascadeROIHeads``, ``FCOS`` or ``CenterMask``; the guide of stages 1-2,
 ``RCNN_FPN_only`` over ``MODEL.GUIDE_BACKBONE.NAME`` (``build_guide_model``).
-Every other name raises ``NotImplementedError`` naming the ROADMAP item:
-queue 1 item 6, sub-item e for keypoints, ``Res5ROIHeads`` and
-``ProposalNetwork``, d for FCOS / CenterMask training, c for the deformable
-conv.
+In a training build (``train``) every BN and SyncBN trains
+(``layers.unfreeze_batch_norms``). Every other name raises ``NotImplementedError`` naming
+the ROADMAP item: queue 1 #6 for keypoints, ``Res5ROIHeads`` and
+``ProposalNetwork``, #2 for Cascade training, #7 for the deformable conv.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from .cascade_roi_heads import CascadeROIHeads
 from .centermask import CenterMask
 from .fcos import FCOS
 from .fpn import FPN
+from .layers import unfreeze_batch_norms
 from .meta_arch import GeneralizedRCNN, RCNN_FPN_only
 from .pafpn import PAFPN
 from .resnest import build_resnest
@@ -37,7 +38,7 @@ from .resnet import build_resnet
 from .roi_heads import StandardROIHeads
 from .swin import build_swin
 
-_TODO = "not ported yet (ROADMAP queue 1 item 6e)"
+_TODO = "not ported yet (ROADMAP queue 1 #6)"
 _STRIDES = {"res2": 4, "res3": 8, "res4": 16, "res5": 32,
             "p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64, "p7": 128}
 
@@ -130,11 +131,14 @@ def _fcos_kwargs(cfg, device) -> dict:
     return dict(
         in_channels=pyramid_channels(cfg), num_classes=f.NUM_CLASSES,
         in_features=tuple(f.IN_FEATURES), fpn_strides=tuple(f.FPN_STRIDES),
-        num_convs=f.NUM_CONVS, norm=f.NORM, prior_prob=f.PRIOR_PROB,
-        centerness_on_reg=f.CENTERNESS_ON_REG, use_scale=f.USE_SCALE,
-        thresh_with_ctr=f.THRESH_WITH_CTR, score_thresh=f.INFERENCE_TH_TEST,
-        nms_thresh=f.NMS_TH, pre_nms_topk=f.PRE_NMS_TOPK_TEST,
-        post_nms_topk=f.POST_NMS_TOPK_TEST, pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+        sizes_of_interest=tuple(f.SIZES_OF_INTEREST), num_convs=f.NUM_CONVS,
+        norm=f.NORM, prior_prob=f.PRIOR_PROB, center_sample=f.CENTER_SAMPLE,
+        pos_radius=f.POS_RADIUS, centerness_on_reg=f.CENTERNESS_ON_REG,
+        use_scale=f.USE_SCALE, thresh_with_ctr=f.THRESH_WITH_CTR,
+        score_thresh=f.INFERENCE_TH_TEST, nms_thresh=f.NMS_TH,
+        pre_nms_topk=f.PRE_NMS_TOPK_TEST, post_nms_topk=f.POST_NMS_TOPK_TEST,
+        score_thresh_train=f.INFERENCE_TH_TRAIN, pre_nms_topk_train=f.PRE_NMS_TOPK_TRAIN,
+        post_nms_topk_train=f.POST_NMS_TOPK_TRAIN, pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         pixel_std=tuple(cfg.MODEL.PIXEL_STD), dtype=compute_dtype(cfg), device=device)
 
 
@@ -146,7 +150,8 @@ def build_centermask(cfg, device=None) -> CenterMask:
     return CenterMask(
         build_backbone(cfg, device),
         mask_pooler_resolution=cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION,
-        pooler_impl=cfg.TPU.POOLER_IMPL, **_fcos_kwargs(cfg, device))
+        pooler_impl=cfg.TPU.POOLER_IMPL, max_fg=min(cfg.TPU.MAX_GT_BOXES, 64),
+        **_fcos_kwargs(cfg, device))
 
 
 def _build_rcnn(cfg, device, return_features=False) -> GeneralizedRCNN:
@@ -191,24 +196,44 @@ def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None,
     Without a GPU the default raises; nothing carries on silently on the CPU.
     With ``generator``, weights are drawn from it (the JAX package's init
     distributions); otherwise they are torch's defaults, to be replaced by
-    ``load_state_dict``. ``train`` returns it in training mode (only
-    ``GeneralizedRCNN`` with standard ROI heads trains so far)."""
+    ``load_state_dict``. ``train`` builds the training model (BN / SyncBN
+    that train, FCOS's ``_TRAIN`` thresholds) in training mode; Cascade R-CNN
+    does not train yet."""
     device = check_device(device, "build_model")
     arch = cfg.MODEL.META_ARCHITECTURE
     rcnn = ("GeneralizedRCNN", "GeneralizedRCNN_AFExtractor")
+    if train and arch in rcnn and cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads":
+        raise NotImplementedError("training Cascade R-CNN is not ported yet (ROADMAP "
+                                  "queue 1 #2)")
     if arch in ("FCOS", "CenterMask"):
         model = (build_fcos if arch == "FCOS" else build_centermask)(cfg, device)
     elif arch in rcnn:
         model = _build_rcnn(cfg, device, return_features=arch == rcnn[1])
     else:
         raise NotImplementedError(f"META_ARCHITECTURE {arch!r} (ProposalNetwork) {_TODO}")
-    if train and (arch not in rcnn or cfg.MODEL.ROI_HEADS.NAME != "StandardROIHeads"):
-        raise NotImplementedError(
-            f"training {arch} / {cfg.MODEL.ROI_HEADS.NAME} is not ported yet (ROADMAP "
-            "queue 1 item 6d, FCOS / CenterMask / Cascade training)")
     if generator is not None:
         model.init_weights(generator)
+    if train:
+        unfreeze_batch_norms(model)
     return model.train(train)
+
+
+def trains_batch_norm(cfg) -> bool:
+    """Whether ``build_model(cfg, train=True)`` holds batch norm that trains
+    (a BN / SyncBN norm on one of the modules it builds), from the config
+    alone, before anything is built."""
+    bottom, pyramid, _ = _BACKBONES.get(cfg.MODEL.BACKBONE.NAME, ("", "fpn", ""))
+    norms = [cfg.MODEL.BIFPN.NORM if pyramid == "bifpn" else cfg.MODEL.FPN.NORM]
+    if bottom != "swin":
+        norms.append(cfg.MODEL.RESNETS.NORM)
+    if cfg.MODEL.META_ARCHITECTURE in ("FCOS", "CenterMask"):
+        norms.append(cfg.MODEL.FCOS.NORM)
+    else:
+        if cfg.MODEL.ROI_BOX_HEAD.NUM_CONV:
+            norms.append(cfg.MODEL.ROI_BOX_HEAD.NORM)
+        if cfg.MODEL.MASK_ON:
+            norms.append(cfg.MODEL.ROI_MASK_HEAD.NORM)
+    return any(n in ("BN", "SyncBN") for n in norms)
 
 
 def build_guide_model(cfg, device="cuda", generator: Optional[torch.Generator] = None

@@ -36,7 +36,7 @@ class CascadeROIHeads(StandardROIHeads):
 
     def losses(self, *args, **kwargs):
         raise NotImplementedError(
-            "Cascade R-CNN training is not ported yet (ROADMAP queue 1 item 6d)")
+            "Cascade R-CNN training is not ported yet (ROADMAP queue 1 #2)")
 
     def forward(self, features, proposals, image_sizes, given_dets=None):
         if given_dets is not None:

@@ -74,11 +74,16 @@ def init_weight(w: torch.Tensor, kind: str, gen: torch.Generator,
 
 class FrozenBatchNorm2d(nn.Module):
     """d2 FrozenBatchNorm2d: (x - mean) / sqrt(var + eps) * w + b, folded
-    into one multiply-add in float32 and cast to the activation dtype."""
+    into one multiply-add in float32 and cast to the activation dtype.
+    ``bn_momentum``: where the module stands for BN / SyncBN (``get_norm``),
+    the flax momentum of the batch norm that ``unfreeze_batch_norms`` puts in
+    its place in a training build; None for FrozenBN, which never trains."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 bn_momentum: Optional[float] = None):
         super().__init__()
         self.eps = eps
+        self.bn_momentum = bn_momentum
         self.register_buffer("weight", torch.ones(num_features))
         self.register_buffer("bias", torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -102,11 +107,12 @@ class GroupNorm(nn.GroupNorm):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Batch norm over NHWC with flax ``nn.BatchNorm``'s statistics, the
-    discriminator's norm (``afigan_tpu/models/layers.py::get_norm`` "SyncBN",
-    which is plain batch norm on one device). In training mode it normalises
-    by the batch's statistics and moves the running ones by ``momentum`` 0.1
-    (flax 0.9) towards them, taking the *biased* batch variance as flax does:
+    """Batch norm over NHWC with flax ``nn.BatchNorm``'s statistics: the
+    discriminator's norm, and BN / SyncBN (plain batch norm on one device) in
+    a training build (``unfreeze_batch_norms``). In training mode it normalises by the
+    batch's statistics and moves the running ones by ``momentum`` (torch's
+    convention: 0.1 is flax's 0.9) towards them, taking the *biased* batch
+    variance as flax does:
     torch's own update takes the unbiased one, n/(n-1) times larger. The
     statistics and the normalisation are torch's (float32 statistics, float32
     affine, output in the activation's dtype). No ``num_batches_tracked``
@@ -116,6 +122,15 @@ class BatchNorm2d(nn.BatchNorm2d):
                  device=None):
         super().__init__(num_features, eps, momentum, device=device)
         self.num_batches_tracked = None
+
+    @classmethod
+    def from_frozen(cls, frozen: FrozenBatchNorm2d) -> "BatchNorm2d":
+        """The batch norm that trains in place of a frozen BN / SyncBN: its
+        eps, torch momentum 1 - its flax ``bn_momentum``, its values."""
+        bn = cls(frozen.weight.numel(), frozen.eps, 1.0 - frozen.bn_momentum,
+                 device=frozen.weight.device)
+        bn.load_state_dict(frozen.state_dict())
+        return bn
 
     def _load_from_state_dict(self, *args, **kwargs):
         # torch's BatchNorm adds a ``num_batches_tracked`` entry to a state
@@ -140,20 +155,37 @@ class BatchNorm2d(nn.BatchNorm2d):
         return to_nhwc(y)
 
 
-def get_norm(norm: str, features: int, bn_eps: float = 1e-5) -> Optional[nn.Module]:
-    """'' | 'FrozenBN' | 'BN' | 'SyncBN' | 'GN'. The port is eval-only, where
-    BN and SyncBN are batch norm over the running statistics: the frozen
-    module, with ``bn_eps`` and d2's BatchNorm keys (weight, bias,
-    running_mean, running_var). GN is 32 groups at eps 1e-5."""
+def get_norm(norm: str, features: int, bn_eps: float = 1e-5, bn_momentum: float = 0.9
+             ) -> Optional[nn.Module]:
+    """'' | 'FrozenBN' | 'BN' | 'SyncBN' | 'GN' (``afigan_tpu/models/layers.py::
+    get_norm``). BN and SyncBN (one device: plain batch norm) are built as
+    the frozen module over the running statistics, with ``bn_eps`` and d2's
+    BatchNorm keys (weight, bias, running_mean, running_var), marked with
+    the flax momentum ``bn_momentum`` of their running update:
+    ``unfreeze_batch_norms`` makes them batch norm that trains in a training
+    build. GN is 32 groups at eps 1e-5."""
     if not norm:
         return None
     if norm == "FrozenBN":
         return FrozenBatchNorm2d(features)
     if norm in ("BN", "SyncBN"):
-        return FrozenBatchNorm2d(features, eps=bn_eps)
+        return FrozenBatchNorm2d(features, eps=bn_eps, bn_momentum=bn_momentum)
     if norm == "GN":
         return GroupNorm(32, features, eps=1e-5)
     raise ValueError(f"unknown norm {norm!r}")
+
+
+def unfreeze_batch_norms(model: nn.Module) -> int:
+    """Puts ``BatchNorm2d.from_frozen`` in place of every frozen BN / SyncBN
+    of ``model`` (FrozenBN stays): the training build's norms, as the JAX
+    package's ``get_norm(..., train=True)``. Returns how many."""
+    n = 0
+    for parent in list(model.modules()):
+        for name, m in list(parent.named_children()):
+            if isinstance(m, FrozenBatchNorm2d) and m.bn_momentum is not None:
+                setattr(parent, name, BatchNorm2d.from_frozen(m))
+                n += 1
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +197,10 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
                  dilation=1, groups=1, bias=True, norm: str = "",
-                 bn_eps: float = 1e-5, device=None):
+                 bn_eps: float = 1e-5, bn_momentum: float = 0.9, device=None):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding,
                          dilation, groups, bias, device=device)
-        n = get_norm(norm, out_ch, bn_eps)
+        n = get_norm(norm, out_ch, bn_eps, bn_momentum)
         if n is not None:
             self.norm = n.to(device)
         else:
@@ -191,12 +223,12 @@ class SeparableConv(nn.Module):
     ``pointwise``, ``norm``."""
 
     def __init__(self, channels: int, out_ch: int, norm: str = "",
-                 bn_eps: float = 1e-5, device=None):
+                 bn_eps: float = 1e-5, bn_momentum: float = 0.9, device=None):
         super().__init__()
         self.depthwise = Conv2d(channels, channels, 3, padding=1, groups=channels,
                                 bias=False, device=device)
         self.pointwise = Conv2d(channels, out_ch, 1, device=device)
-        n = get_norm(norm, out_ch, bn_eps)
+        n = get_norm(norm, out_ch, bn_eps, bn_momentum)
         self.norm = None if n is None else n.to(device)
 
     def forward(self, x):

@@ -31,8 +31,11 @@ flax path                                             state-dict key
 ``mask_head/deconv``, ``mask_head/predictor/conv``    ``roi_heads.mask_head.{deconv,predictor}``
 ====================================================  ==========================================
 
-Numpy only; ``load_state_dict`` reads d2 / Caffe2 ``.pkl`` and torch ``.pth``
-files for ``MODEL.WEIGHTS``.
+Batch-norm statistics (``batch_stats``: the running mean and variance of the
+BN / SyncBN that train, a BiFPN's) map to the same keys as the FrozenBN
+statistics. Numpy only; ``load_state_dict`` reads d2 / Caffe2 ``.pkl`` and
+torch ``.pth`` files for ``MODEL.WEIGHTS`` and refuses the JAX package's
+``.msgpack`` trees.
 """
 
 from __future__ import annotations
@@ -45,7 +48,13 @@ import numpy as np
 
 
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """Load a d2 ``.pkl`` or torch ``.pth`` checkpoint into name→ndarray."""
+    """Load a d2 ``.pkl`` or torch ``.pth`` checkpoint into name→ndarray. A
+    ``.msgpack`` tree of the JAX package raises ``ValueError``."""
+    if path.endswith(".msgpack"):
+        raise ValueError(
+            f"{path}: a .msgpack checkpoint of the JAX package; the port reads .pkl and "
+            ".pth files, and its reader of .msgpack trees is not ported yet (ROADMAP "
+            "queue 1 #5)")
     if path.endswith(".pkl"):
         with open(path, "rb") as f:
             data = pickle.load(f, encoding="latin1")

@@ -94,6 +94,16 @@ CPU):
               backward / optimizer split; then the pool's backward on one
               step's own ROIs and gradients, as in phase 2 (the JSON line's
               ``roi_pool_bwd`` entry)
+ 10b. train_centermask  stage-3 training of CenterMask R-50-BiFPN(AFI) the
+              same way (the inference YAML at full width with
+              ``MODEL.AFI_FREEZE False``, BiFPN 6 x 160 with batch norm that
+              trains, 64 GT slots with 28x28 masks, bf16, batch 2, 896x1408):
+              1 pool forward, 1 pool backward at 160 channels and 2 NMS
+              launches a step asserted; the mask branch samples the FCOS
+              head's post-NMS detections of the step (with random weights none
+              passes the 0.05 threshold: it trains on the 12 GT boxes an image,
+              appended); one step's pool and NMS launches held against their
+              plain versions, and the pool's backward on one step's own ROIs
  11. stage1   stage-1 training (AFI-GAN) at full width
               (``configs/step1_afigan_training/...R_50_FPN_1x.yaml``: R-50-FPN
               guide, AF interpolator 256 channels with 3 dense blocks, the
@@ -116,6 +126,14 @@ CPU):
               GT, the guide at 832x1344; 2 ``roi_pool``, 2 ``roi_pool_bwd`` and
               2 NMS launches a step asserted, no generator kernel; then the
               pool's backward on one step's own ROIs, as in phase 10
+ 12b. stage2_fcos  stage 2 of the FCOS R-50-BiFPN step-2 YAML the same way,
+              widths unchanged (R-50, BiFPN 6 x 160 whose batch norms train, AF
+              interpolator and D at 160 channels, 4-conv GN towers; guide
+              R-50-BiFPN with nearest upsampling), bf16, batch 2, 1024x1536
+              (800x1333 padded to 256) and its 512x768 half, the YAML's lr at
+              batch 2: no launch of any port kernel (FCOS pools nothing and
+              decodes nothing in training, the generator trains unfused),
+              detector, D and every BiFPN running statistic moved
  13. card_vs_cpu  in float32 (TF32 off) on a small canvas: the GPU (kernels)
               and the CPU (plain versions) on the same weights; detections must
               agree at the golden-regression tolerances. The R-50 model under
@@ -123,12 +141,14 @@ CPU):
               narrow CenterMask under ``windowed``, the R-50-PAFPN model, a
               narrow ResNeSt-PAFPN cascade mask model, and TTA with masks on
               a narrow R-50 (merged detections and averaged masks)
- 14. train_card_vs_cpu  one stage-3 step of a narrow float32 model on the
-              card and on the CPU with the same weights, batch and subsample
-              keys: losses and trainable gradients must agree
- 15. stage12_card_vs_cpu  one step of stage 1 and one of stage 2 at the CPU
-              tests' narrow widths, the same way: metrics, gradients and the
-              discriminator's statistics must agree
+ 14. train_card_vs_cpu  one stage-3 step of a narrow float32 R-50 and one of
+              a narrow CenterMask on the card and on the CPU with the same
+              weights, batch and subsample keys: losses, trainable gradients
+              and batch-norm statistics must agree
+ 15. stage12_card_vs_cpu  one step of stage 1 and one of stage 2 (the R-50
+              and the FCOS step-2 YAMLs) at the CPU tests' narrow widths, the
+              same way: metrics, gradients and the discriminator's (and the
+              BiFPN's) statistics must agree
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -292,6 +312,27 @@ def median_ms(fn, iters=10, warmup=2, inner=4):
         e.synchronize()
         times.append(s.elapsed_time(e) / inner)
     return float(np.median(times))
+
+
+def timed_steps(step):
+    """``TRAIN_WARMUP`` + ``TRAIN_TIMED`` calls of ``step`` (a train step that
+    returns its metrics): (every step's metrics, and for the timed steps the
+    host-clock ms to a synchronize and the ms between CUDA events recorded
+    around the step)."""
+    import torch
+
+    steps, host, events = [], [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        steps.append(step())
+        end.record()
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            host.append(1000 * (time.perf_counter() - t0))
+            events.append(start.elapsed_time(end))
+    return steps, host, events
 
 
 def compare(name, got, want, kind, dtype_name, quiet=False):
@@ -882,7 +923,7 @@ def kernels_roi_pool_backward(results):
         torch.cuda.empty_cache()
 
 
-def check_train_pool_backward(results, calls, path="train"):
+def check_train_pool_backward(results, calls, path="train", sizes=(7, 14)):
     """The pool's backward on the ROIs and gradients of one train step (its
     box and mask pools), in bf16 as the step runs it and in float32 on the
     same values: the JSON line's ``roi_pool_bwd`` entry. The step's gradient
@@ -891,7 +932,7 @@ def check_train_pool_backward(results, calls, path="train"):
     absolute term (1e-5) would otherwise pass any answer."""
     import torch
 
-    if sorted(c[5] for c in calls) != [7, 14]:
+    if sorted(c[5] for c in calls) != sorted(sizes):
         raise AssertionError(f"{path}: pool backward calls at P {[c[5] for c in calls]}")
     for feats, boxes, lv, grad, strides, p, *_ in calls:
         hist = torch.bincount(lv.flatten(), minlength=len(feats)).tolist()
@@ -1759,6 +1800,7 @@ class HeldKernels:
         self.dtype_name = dtype_name
         self.err = {}    # kernel → max error
         self.calls = {}  # kernel → calls compared
+        self.nms = []    # per NMS call: (valid candidates, kept, suppressed up to the stop)
 
     def _held(self, name, kernel, plain, drop=()):
         def call(*a, **k):
@@ -1776,6 +1818,9 @@ class HeldKernels:
                 if not torch.equal(got[:, :upto], want[:, :upto]):
                     raise AssertionError("nms: the kernel's keep mask differs from the "
                                          "plain loop's")
+                valid_s = torch.gather(a[1], 1, a[2])[:, :upto]
+                self.nms.append((int(a[1].sum()), int(got.sum()),
+                                 int((valid_s & ~got[:, :upto]).sum())))
                 err = 0.0
             else:
                 err = compare(f"{name} held", got, want, self.KINDS[name], self.dtype_name,
@@ -1813,6 +1858,39 @@ class HeldKernels:
     def __exit__(self, *exc):
         for m, n, f in self._saved:
             setattr(m, n, f)
+
+
+class SampledROIs:
+    """While entered, counts the ROIs of every ``roi_heads.sample_proposals``
+    (its ``subsample_labels`` over the proposals with the ``m`` GT slots
+    appended): those taken from the proposals (the detections, for
+    CenterMask), of them foreground, and the appended GT."""
+
+    def __init__(self, m):
+        self.m = m
+        self.det = self.fg_det = self.gt = 0
+
+    def __enter__(self):
+        import torch
+        from afigan_tpu_torch.models import roi_heads
+
+        subsample = self._saved = roi_heads.subsample_labels
+
+        def probe(labels, *a, **k):
+            idx, valid = subsample(labels, *a, **k)
+            det = valid & (idx < labels.shape[-1] - self.m)
+            self.det += int(det.sum())
+            self.fg_det += int((det & (torch.gather(labels, -1, idx) == 1)).sum())
+            self.gt += int((valid & ~det).sum())
+            return idx, valid
+
+        roi_heads.subsample_labels = probe
+        return self
+
+    def __exit__(self, *exc):
+        from afigan_tpu_torch.models import roi_heads
+
+        roi_heads.subsample_labels = self._saved
 
 
 def write_coco(root, n_img, hw, seed, num_classes):
@@ -1989,10 +2067,12 @@ def phase_tta(results):
 # the models' record_function ranges: their GPU spans (first to last kernel,
 # idle gaps included) are not device work
 RANGES = ("backbone", "afi_generator", "rpn", "roi_heads", "fcos_head", "fcos_decode",
-          "mask_pool", "mask_head", "guide", "generator", "detector", "d_step", "g_step")
+          "fcos_losses", "mask_sample", "mask_pool", "mask_head", "guide", "generator",
+          "detector", "d_step", "g_step")
 # the ranges of a stage-1 and a stage-2 step (engine/stage{1,2}.py::step_tensors)
 STEP_RANGES = {"stage1": ("guide", "generator", "d_step", "g_step"),
-               "stage2": ("guide", "detector", "d_step", "g_step")}
+               "stage2": ("guide", "detector", "d_step", "g_step"),
+               "stage2_fcos": ("guide", "detector", "d_step", "g_step")}
 
 
 def profile_batch(model, batch):
@@ -2150,6 +2230,10 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 TRAIN_PER_STEP = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0, "roi_pool": 2,
                   "roi_pool_bwd": 2, "layer_norm": 0, "window_attention": 0,
                   "window_gather": 0, "nms": 2}
+# CenterMask: the mask pool forward and backward at 160 channels, one FCOS
+# decode NMS call an image (the mask branch's proposals)
+CENTERMASK_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, roi_pool=1, roi_pool_bwd=1)
+CENTERMASK_YAML = "inference/AFI-GAN_centermask_R_50_BiFPN.yaml"
 
 
 def train_records(gen, n_img=2, hw=(800, 1333), n_obj=12):
@@ -2178,19 +2262,49 @@ def train_records(gen, n_img=2, hw=(800, 1333), n_obj=12):
     return recs
 
 
-def train_cfg(out_dir):
+def train_cfg(out_dir, yaml=STEP3_YAML, *extra):
     """The stage-3 YAML at full width (ResNet-50, FPN 256, AFI 3 RDBs, masks,
-    RPN 2000/1000, 512 + 128 ROIs an image), bf16, batch 2; the short side
-    800 so that every batch fills the 832x1344 canvas; warm-up off."""
+    RPN 2000/1000, 512 + 128 ROIs an image), or ``yaml``, bf16, batch 2; the
+    short side 800 so that every batch fills the 832x1344 canvas (896x1408
+    for a BiFPN); warm-up off; ``extra`` merged last."""
     from afigan_tpu_torch.config import cfg_from_yaml
 
-    cfg = cfg_from_yaml(STEP3_YAML)
+    cfg = cfg_from_yaml(yaml)
     cfg.merge_from_list([
         "TPU.COMPUTE_DTYPE", "bfloat16", "SOLVER.IMS_PER_BATCH", "2",
         "SOLVER.BASE_LR", str(TRAIN_LR), "SOLVER.WARMUP_ITERS", "0",
         "INPUT.MIN_SIZE_TRAIN", "(800,)", "SEED", "0", "DATASETS.TRAIN", "('chip_smoke_train',)",
-        "DATASETS.TEST", "()", "OUTPUT_DIR", str(out_dir)])
+        "DATASETS.TEST", "()", "OUTPUT_DIR", str(out_dir), *extra])
     return cfg
+
+
+def centermask_train_cfg(out_dir):
+    """The CenterMask R-50-BiFPN YAML at full width (BiFPN 6 x 160 channels,
+    4-conv GN towers, SAG mask head) with the AF interpolator trained
+    (``MODEL.AFI_FREEZE False``), 64 GT slots with 28x28 mask canvases, as
+    the JAX bench's ``centermask`` mode; otherwise ``train_cfg``'s. The
+    decode of training keeps its 1000 / 100 candidates at threshold 0: a
+    seeded head scores every location near its 0.01 prior, under the YAML's
+    0.05, so no candidate would reach NMS or the mask branch; a prior lifted
+    above 0.05 takes the focal loss of 4.2M negative entries a step, about a
+    thousand times its gradient at 0.01, and is trained back under it."""
+    return train_cfg(out_dir, CENTERMASK_YAML, "MODEL.AFI_FREEZE", "False",
+                     "TPU.MAX_GT_BOXES", "64", "TPU.MASK_CANVAS", "28",
+                     "MODEL.FCOS.INFERENCE_TH_TRAIN", "0.0")
+
+
+# the FCOS head's box distances at the start of train_centermask, in strides
+# (the bias of ``bbox_pred``): a seeded head regresses distances of a fraction
+# of a stride, half of them 0, boxes that neither overlap in NMS nor cover a
+# pooled window; 3 strides gives the boxes of 48-768 px of a trained head
+CENTERMASK_BOX_STRIDES = 3.0
+
+
+def spread_fcos_boxes(model):
+    import torch
+
+    with torch.no_grad():
+        model.proposal_generator.fcos_head.bbox_pred.bias.fill_(CENTERMASK_BOX_STRIDES)
 
 
 def step_split(cfg, state, inputs, draws):
@@ -2217,13 +2331,28 @@ def step_split(cfg, state, inputs, draws):
 
 
 def phase_train(results):
+    train_phase(results, "train", train_cfg, R50_CANVAS, TRAIN_PER_STEP, (7, 14))
+
+
+def phase_train_centermask(results):
+    train_phase(results, "train_centermask", centermask_train_cfg, SWIN_CANVAS,
+                CENTERMASK_TRAIN_PER_STEP, (14,), spread_fcos_boxes)
+
+
+def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=None):
     """Stage-3 training at full width through ``TargetDetectorTrainer``: two
     iterations of ``train()`` over an in-memory dataset (mapper, loader,
     hooks, a checkpoint), then the main path: ``TRAIN_WARMUP`` + ``TRAIN_TIMED``
     steps of the trainer's state on one repeated batch, launches counted per
     step, every loss finite, ``total_loss`` lower at the last step than at
-    the first; one profiled step (device busy share) and one step split into
-    forward, backward and optimizer."""
+    the first; one step with every pooler and NMS launch held against its
+    plain version on its own inputs; one profiled step (device busy share)
+    and one step split into forward, backward and optimizer; the pool's
+    backward on one step's own ROIs (``pool_sizes``: its calls' output
+    sizes), whose calls phase ``train`` saves for ``kernel_sweep.py``. In the
+    held step every NMS call has valid candidates and suppresses some, and
+    the ROI sampler takes proposals besides the appended GT. ``prepare``: a
+    change to the seeded model before the first step."""
     import json as _json
     import shutil
     import types
@@ -2242,69 +2371,81 @@ def phase_train(results):
     from afigan_tpu_torch.tools.kernel_sweep import (POOL_CALLS, capture_pool_backward,
                                                      save_pool_calls)
 
-    out_dir = Path(__file__).resolve().parent / "output" / "chip_smoke_train"
+    out_dir = Path(__file__).resolve().parent / "output" / f"chip_smoke_{path}"
     shutil.rmtree(out_dir, ignore_errors=True)
     records = train_records(torch.Generator().manual_seed(7))
     coco.register_dataset("chip_smoke_train", lambda: types.SimpleNamespace(records=records))
-    cfg = train_cfg(out_dir)
+    cfg = make_cfg(out_dir)
     cfg.SOLVER.MAX_ITER = 2
     cfg.SOLVER.CHECKPOINT_PERIOD = 2
     mapper = DatasetMapper(cfg, is_train=True, seed=0)
     batch = collate_batch([mapper(r) for r in records], cfg.TPU.IMAGE_BUCKETS,
                           required_size_divisibility(cfg))
-    if tuple(batch["image"].shape[1:3]) != R50_CANVAS:
-        raise AssertionError(f"canvas {batch['image'].shape[1:3]} != {R50_CANVAS}")
+    if tuple(batch["image"].shape[1:3]) != canvas:
+        raise AssertionError(f"{path}: canvas {batch['image'].shape[1:3]} != {canvas}")
     t0 = time.perf_counter()
     trainer = TargetDetectorTrainer(cfg, device="cuda")
+    if prepare is not None:
+        prepare(trainer.model)
     inputs = batch_to_device(batch, "cuda")
     n_bn = calibrate_frozen_bn(trainer.model, inputs["image"])
     trainer.train()
     lines = [_json.loads(x) for x in open(out_dir / "metrics.json")]
     if not (out_dir / "model_0000002.pth").is_file() or not all(
             np.isfinite(r["total_loss"]) for r in lines):
-        raise AssertionError(f"train(): no checkpoint or a non-finite loss: {lines}")
-    log(f"  train(): 2 iterations through the loader in {time.perf_counter() - t0:.1f} s "
+        raise AssertionError(f"{path} train(): no checkpoint or a non-finite loss: {lines}")
+    log(f"  {path} train(): 2 iterations through the loader in {time.perf_counter() - t0:.1f} s "
         f"(build included), total_loss {lines[-1]['total_loss']:.4f}, "
         f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.2f}M params, "
         f"{sum(p.numel() for p in trainer.model.parameters() if p.requires_grad) / 1e6:.2f}M "
         f"trainable, {n_bn} FrozenBN statistics calibrated on the batch")
     n_gt = int(inputs["gt"].valid.sum())
-    steps, ms = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
-        t0 = time.perf_counter()
-        m = train_step(cfg, trainer.state, inputs, trainer.sampling)
-        torch.cuda.synchronize()
-        if i >= TRAIN_WARMUP:
-            ms.append(1000 * (time.perf_counter() - t0))
-        steps.append(m)
+    steps, ms, ev = timed_steps(lambda: train_step(cfg, trainer.state, inputs, trainer.sampling))
     counts = dict(LAUNCHES)
     n = len(steps)
     with BoundCapture() as bounds:  # one more step: the bounds of its launches
         train_step(cfg, trainer.state, inputs, trainer.sampling)
-    bounds.log("train, one step")
-    log(f"  train: launches in {n} steps " + _json.dumps(counts))
-    for k, per in TRAIN_PER_STEP.items():
+    bounds.log(f"{path}, one step")
+    log(f"  {path}: launches in {n} steps " + _json.dumps(counts))
+    for k, per in per_step.items():
         if counts[k] != per * n:
-            raise AssertionError(f"train: {counts[k]} launches of {k} in {n} steps, expected "
+            raise AssertionError(f"{path}: {counts[k]} launches of {k} in {n} steps, expected "
                                  f"{per} per step")
     for i, m in enumerate(steps):
         if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"train step {i}: a non-finite loss {m}")
-    log("  train: total_loss by step " + " ".join(f"{m['total_loss']:.4f}" for m in steps))
-    log("  train: first / last step " + ", ".join(
+            raise AssertionError(f"{path} step {i}: a non-finite loss {m}")
+    log(f"  {path}: total_loss by step " + " ".join(f"{m['total_loss']:.4f}" for m in steps))
+    log(f"  {path}: first / last step " + ", ".join(
         f"{k} {steps[0][k]:.4f} / {steps[-1][k]:.4f}" for k in steps[0]))
     if not steps[-1]["total_loss"] < steps[0]["total_loss"]:
-        raise AssertionError("train: total_loss did not fall over the repeated batch")
+        raise AssertionError(f"{path}: total_loss did not fall over the repeated batch")
     med = float(np.median(ms))
-    log(f"  train: {med:.1f} ms per step of 2 images (median of {len(ms)}; min {min(ms):.1f}, "
-        f"max {max(ms):.1f}), {2000 / med:.3f} images/s at the median, "
-        f"{R50_CANVAS[0]}x{R50_CANVAS[1]} canvas, bf16, lr {TRAIN_LR}, {n_gt} GT boxes; "
+    log(f"  {path}: {med:.1f} ms per step of 2 images (median of {len(ms)}; min {min(ms):.1f}, "
+        f"max {max(ms):.1f}), {2000 / med:.3f} images/s at the median, by CUDA events "
+        f"{np.median(ev):.1f} ms ({min(ev):.1f}-{max(ev):.1f}), "
+        f"{canvas[0]}x{canvas[1]} canvas, bf16, lr {TRAIN_LR}, {n_gt} GT boxes; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for k in ("roi_pool", "roi_pool_bwd", "nms"):
-        results[k].setdefault("launches", {})["train"] = counts[k] // n
+        results[k].setdefault("launches", {})[path] = counts[k] // n
+    # one step with every pooler and NMS launch held against its plain
+    # version on the launch's own inputs (the pool's backward: below)
+    with HeldKernels("bfloat16") as held, SampledROIs(inputs["gt"].valid.shape[1]) as rois:
+        train_step(cfg, trainer.state, inputs, trainer.sampling)
+    want = {k: per_step[k] for k in ("roi_pool", "nms")}
+    if held.calls != want:
+        raise AssertionError(f"{path}: held {held.calls} launches, expected {want}")
+    log(f"  {path}: one step's launches held against their plain versions: " + ", ".join(
+        f"{k} x{n_} max_abs_err {held.err[k]:.3e}" for k, n_ in held.calls.items()))
+    log(f"  {path}: the held step's NMS calls (valid candidates, kept, suppressed before "
+        f"the stop) {held.nms}; ROIs sampled {rois.det} from the proposals ({rois.fg_det} "
+        f"foreground), {rois.gt} appended GT")
+    if min(min(v, s) for v, _, s in held.nms) == 0:
+        raise AssertionError(f"{path}: an NMS call without valid candidates or suppression")
+    if rois.det == 0:
+        raise AssertionError(f"{path}: the ROI sampler took only the appended GT")
 
     # one step under the profiler, its trace held against the wrappers' counts
     for session in range(3):
@@ -2320,10 +2461,10 @@ def phase_train(results):
         held = sum(e.count for e in kernels if any(k in e.key for k in PORT_KERNELS))
         if held == device_kernels(LAUNCHES):
             break
-        log(f"  train profile: session {session + 1} of 3 holds {held} of the step's "
+        log(f"  {path} profile: session {session + 1} of 3 holds {held} of the step's "
             f"{device_kernels(LAUNCHES)} launches of the port's kernels")
     busy = sum(e.self_device_time_total for e in kernels) / 1000.0
-    log(f"  train profile: wall {1000 * wall:.1f} ms, device busy {busy:.1f} ms "
+    log(f"  {path} profile: wall {1000 * wall:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / (1000 * wall):.1f} % of wall)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} {e.key[:90]}")
@@ -2334,22 +2475,23 @@ def phase_train(results):
     # the pool's backward launch by launch, in the order autograd ran them
     bwd = [e.self_device_time_total / 1000.0 for e in prof.events()
            if e.device_type == DeviceType.CUDA and "roi_pool_bwd_kernel" in e.name]
-    log(f"  train profile: the pool's backward {sum(bwd):.3f} ms on the device in "
+    log(f"  {path} profile: the pool's backward {sum(bwd):.3f} ms on the device in "
         f"{len(bwd)} launches ({', '.join(f'{t:.3f}' for t in bwd)} ms; "
         f"{100 * sum(bwd) / max(busy, 1e-9):.1f} % of the busy time)")
     fwd, bwd, opt = step_split(cfg, trainer.state, inputs, trainer.sampling)
     tot = fwd + bwd + opt
-    log(f"  train split (host clock, synchronized): forward {1000 * fwd:.1f} ms "
+    log(f"  {path} split (host clock, synchronized): forward {1000 * fwd:.1f} ms "
         f"({100 * fwd / tot:.1f} %), backward {1000 * bwd:.1f} ms ({100 * bwd / tot:.1f} %), "
         f"optimizer {1000 * opt:.1f} ms ({100 * opt / tot:.1f} %)")
     # the pool's backward on this step's own ROIs and gradients, saved for
     # ``kernel_sweep.py roi_pool_bwd``
     calls = capture_pool_backward(
         lambda: train_step(cfg, trainer.state, inputs, trainer.sampling))
-    save_pool_calls(calls, POOL_CALLS)
-    log(f"  train: the step's {len(calls)} pool backward calls saved to {POOL_CALLS}")
+    if path == "train":
+        save_pool_calls(calls, POOL_CALLS)
+        log(f"  train: the step's {len(calls)} pool backward calls saved to {POOL_CALLS}")
     del trainer, inputs
-    check_train_pool_backward(results, calls)
+    check_train_pool_backward(results, calls, path, pool_sizes)
     del calls
     torch.cuda.empty_cache()
 
@@ -2372,40 +2514,71 @@ def fixed_draws(shape, device):
                  for k in keys)
 
 
+# the CenterMask YAML at the widths of tests/test_torch_port_centermask_train.py,
+# its FCOS decode at threshold 0 so that the mask branch samples detections
+NARROW_CENTERMASK = [
+    "TPU.COMPUTE_DTYPE", "float32", "MODEL.AFI_FREEZE", "False",
+    "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.RESNETS.STEM_OUT_CHANNELS", "16",
+    "MODEL.RESNETS.WIDTH_PER_GROUP", "8", "MODEL.BIFPN.OUT_CHANNELS", "32",
+    "MODEL.BIFPN.FPN_REPEAT", "2", "MODEL.AFI.N_RDB", "1", "MODEL.AFI.GROWTH_RATE", "8",
+    "MODEL.FCOS.NUM_CONVS", "1", "MODEL.FCOS.NUM_CLASSES", "3",
+    "MODEL.FCOS.INFERENCE_TH_TRAIN", "0.0", "MODEL.FCOS.PRE_NMS_TOPK_TRAIN", "64",
+    "MODEL.FCOS.POST_NMS_TOPK_TRAIN", "16", "MODEL.PIXEL_STD", "(57.375, 57.12, 58.395)",
+    "TPU.MAX_GT_BOXES", "8", "SOLVER.BASE_LR", "0.001", "SOLVER.WARMUP_ITERS", "0"]
+
+
+def narrow_train_batch(h, w, m):
+    """Two random-pixel images, m GT slots with the first two valid, masks."""
+    rng = np.random.RandomState(0)
+    boxes = np.zeros((2, m, 4), np.float32)
+    boxes[:, 0] = [8, 8, 40, 32]
+    boxes[:, 1] = [20, 24, 60, 56]
+    return {"image": (rng.rand(2, h, w, 3) * 255).astype(np.float32),
+            "image_sizes": np.asarray([[h, w]] * 2, np.int32),
+            "gt": {"boxes": boxes, "classes": np.zeros((2, m), np.int32),
+                   "valid": np.arange(m)[None].repeat(2, 0) < 2,
+                   "masks": rng.rand(2, m, 28, 28).astype(np.float32)}}
+
+
 @tf32_off()
 def phase_train_card_vs_cpu(results):
     """One stage-3 step of a narrow float32 model (TF32 off) with the same
     weights (FrozenBN calibrated on the batch), batch and fixed subsample keys
     on the card and on the CPU: the losses at 1e-4 relative, each trainable
-    gradient at 1e-3 of its largest entry (or 1e-5 of the largest of all). On
-    the card the pool's forward and backward kernels run inside."""
-    import torch
-
+    gradient at 1e-3 of its largest entry (or 1e-5 of the largest of all).
+    Two models: the R-50 stage-3 YAML (on the card the pool's forward and
+    backward kernels at 2 launches each, 2 NMS) and the CenterMask
+    R-50-BiFPN YAML on 128x256 images (its mask pool's forward and backward
+    at 32 channels, one launch each, and the FCOS decode's 2 NMS); the
+    CenterMask's BiFPN batch-norm statistics after the step at 1e-4 of each
+    tensor's largest entry."""
     from afigan_tpu_torch.config import cfg_from_yaml
-    from afigan_tpu_torch.engine.stage3 import batch_to_device, init_stage3_state, loss_and_grads
-    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
 
     cfg = cfg_from_yaml(STEP3_YAML)
     cfg.merge_from_list(NARROW_STAGE3)
-    rng = np.random.RandomState(0)
-    b, h, w, m = 2, 64, 64, 4
-    boxes = np.zeros((b, m, 4), np.float32)
-    boxes[:, 0] = [8, 8, 40, 32]
-    boxes[:, 1] = [20, 24, 60, 56]
-    batch = {"image": (rng.rand(b, h, w, 3) * 255).astype(np.float32),
-             "image_sizes": np.asarray([[h, w]] * b, np.int32),
-             "gt": {"boxes": boxes, "classes": np.zeros((b, m), np.int32),
-                    "valid": np.array([[True, True, False, False]] * b),
-                    "masks": rng.rand(b, m, 28, 28).astype(np.float32)}}
+    stage3_card_vs_cpu("r50", cfg, narrow_train_batch(64, 64, 4), TRAIN_PER_STEP, 0)
+    cfg = cfg_from_yaml(CENTERMASK_YAML)
+    cfg.merge_from_list(NARROW_CENTERMASK)
+    # the BiFPN's 6 + 8 a layer batch norms, mean and variance each
+    stage3_card_vs_cpu("centermask", cfg, narrow_train_batch(128, 256, 8),
+                       CENTERMASK_TRAIN_PER_STEP, 2 * (6 + 8 * cfg.MODEL.BIFPN.FPN_REPEAT))
+
+
+def stage3_card_vs_cpu(name, cfg, batch, per_step, n_stats):
+    import torch
+
+    from afigan_tpu_torch.engine.stage3 import batch_to_device, init_stage3_state, loss_and_grads
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
 
     out = {}
     for dev in ("cpu", "cuda"):
         state = init_stage3_state(cfg, dev, torch.Generator().manual_seed(1))
         if dev == "cpu":
             calibrate_frozen_bn(state.model, torch.from_numpy(batch["image"]))
+            before = {k: v.clone() for k, v in state.model.state_dict().items()}
         else:
-            state.model.load_state_dict(out["cpu"][2])
+            state.model.load_state_dict(before)
         reset_launches()
         losses = loss_and_grads(cfg, state.model, batch_to_device(batch, dev), fixed_draws)
         grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()
@@ -2413,29 +2586,38 @@ def phase_train_card_vs_cpu(results):
         out[dev] = ({k: float(v) for k, v in losses.items()}, grads,
                     {k: v.cpu() for k, v in state.model.state_dict().items()},
                     dict(LAUNCHES))
-    (lc, gc, _, _), (lg, gg, _, launched) = out["cpu"], out["cuda"]
+    (lc, gc, sc, _), (lg, gg, sg, launched) = out["cpu"], out["cuda"]
     for k, want in lc.items():
-        np.testing.assert_allclose(lg[k], want, rtol=1e-4, atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(lg[k], want, rtol=1e-4, atol=1e-7, err_msg=f"{name} {k}")
     if set(gg) != set(gc) or not gg:
-        raise AssertionError("card and CPU train different parameters")
+        raise AssertionError(f"{name}: card and CPU train different parameters")
     # 1e-3 of each tensor's largest entry, or 1e-5 of the largest of all where
     # a tensor's sums cancel to far below their terms
     top = max(float(g.abs().max()) for g in gc.values())
     worst = 0.0
-    for name, want in gc.items():
+    for n, want in gc.items():
         bound = max(1e-3 * float(want.abs().max()), 1e-5 * top)
-        err = float((gg[name] - want).abs().max())
+        err = float((gg[n] - want).abs().max())
         worst = max(worst, err / bound)
         if not err <= bound:
-            raise AssertionError(f"gradient {name}: {err} > {bound}")
-    for k, per in (("roi_pool", 2), ("roi_pool_bwd", 2), ("nms", b)):
-        if launched[k] != per:
-            raise AssertionError(f"train card_vs_cpu: {launched[k]} launches of {k}, "
-                                 f"expected {per}")
-    log("  train card_vs_cpu: losses " + ", ".join(f"{k} {lg[k]:.6f} (cpu {lc[k]:.6f})"
-                                                 for k in lc)
+            raise AssertionError(f"{name} gradient {n}: {err} > {bound}")
+    moved = [k for k in sc if "running_" in k and not torch.equal(sc[k], before[k])]
+    if len(moved) != n_stats:
+        raise AssertionError(f"{name}: {len(moved)} batch-norm statistics moved, expected "
+                             f"{n_stats}")
+    for k in moved:
+        err = float((sg[k] - sc[k]).abs().max())
+        if not err <= 1e-4 * float(sc[k].abs().max()):
+            raise AssertionError(f"{name} statistic {k}: {err}")
+    for k in ("roi_pool", "roi_pool_bwd", "nms"):
+        if launched[k] != per_step[k]:
+            raise AssertionError(f"{name} train card_vs_cpu: {launched[k]} launches of {k}, "
+                                 f"expected {per_step[k]}")
+    log(f"  {name} train card_vs_cpu: losses " + ", ".join(
+        f"{k} {lg[k]:.6f} (cpu {lc[k]:.6f})" for k in lc)
         + f"; {len(gg)} trainable gradients, worst error {worst:.3f} of its bound; "
-        f"launches on the card {json.dumps({k: v for k, v in launched.items() if v})}")
+        f"{len(moved)} batch-norm statistics moved, equal; launches on the card "
+        f"{json.dumps({k: v for k, v in launched.items() if v})}")
 
 
 # ---------------------------------------------------------------------------
@@ -2444,12 +2626,20 @@ def phase_train_card_vs_cpu(results):
 
 STEP1_YAML = "step1_afigan_training/step1_afigan_mask_rcnn_R_50_FPN_1x.yaml"
 STEP2_YAML = "step2_af_extractor_training/step2_af_extractor_mask_rcnn_R_50_FPN_1x.yaml"
-HALF_CANVAS = (R50_CANVAS[0] // 2, R50_CANVAS[1] // 2)
 # per step: stage 1 launches no kernel of the port (the guide is plain ResNet +
 # FPN, the generator trains through its unfused route, the discriminator is
 # library convolutions); stage 2's detector launches stage 3's kernels
 STAGE1_PER_STEP = {k: 0 for k in KERNELS}
 STAGE2_PER_STEP = dict(STAGE1_PER_STEP, roi_pool=2, roi_pool_bwd=2, nms=2)
+# FCOS over a BiFPN as the AF extractor: its training forward pools nothing
+# and decodes nothing (no NMS), the guide is plain ResNet + BiFPN, the
+# generator trains through its unfused route: no kernel of the port
+STEP2_FCOS_YAML = "step2_af_extractor_training/step2_af_extractor_fcos_R_50_BiFPN.yaml"
+FCOS_CANVAS = (1024, 1536)  # 800x1333 padded to 256 (dual scale): a 512x768 half
+# stage → (YAML, full canvas, launches a step)
+GAN_STAGES = {"stage1": (STEP1_YAML, R50_CANVAS, STAGE1_PER_STEP),
+              "stage2": (STEP2_YAML, R50_CANVAS, STAGE2_PER_STEP),
+              "stage2_fcos": (STEP2_FCOS_YAML, FCOS_CANVAS, STAGE1_PER_STEP)}
 
 
 def gan_cfg(yaml, out_dir):
@@ -2540,18 +2730,20 @@ def check_loaded(model, saved, prefix=""):
 
 def gan_phase(results, stage):
     """Stage 1 or 2 at full width through its trainer (``AFIGANTrainer``,
-    ``AFExtractorTrainer``): two iterations of ``train()`` over an in-memory
-    dataset (dual-scale mapper, loader, hooks, both checkpoints), then the main
-    path: ``TRAIN_WARMUP`` + ``TRAIN_TIMED`` steps of the trainer's state on
-    one repeated batch, launches counted per step, every loss finite, G (stage
-    1) or the detector (stage 2) and D moved, no gradient left on D; ms per
-    step, images/s, peak memory, one profiled step (device busy share, and
-    its guide / G or detector / D step / G step split by the step's
-    record_function ranges) and the operations of a step against the tensor
-    cores' peak. Stage 2 starts from the stage-1 phase's checkpoints and
-    hands its own AF interpolator to a stage-3 trainer, each load held equal
-    to its file on the card; it then holds the pool's backward on one step's
-    own ROIs against its plain version."""
+    ``AFExtractorTrainer``; ``stage`` a key of ``GAN_STAGES``): two iterations
+    of ``train()`` over an in-memory dataset (dual-scale mapper, loader, hooks,
+    both checkpoints), then the main path: ``TRAIN_WARMUP`` + ``TRAIN_TIMED``
+    steps of the trainer's state on one repeated batch, launches counted per
+    step, every loss finite, G (stage 1) or the detector (stage 2) and D
+    moved, and the running statistics of the detector's batch norms that
+    train (the FCOS BiFPN's), no gradient left on D; ms per step, images/s,
+    peak memory, one profiled step (device busy share, and its guide / G or
+    detector / D step / G step split by the step's record_function ranges)
+    and the operations of a step against the tensor cores' peak. Stage 2 of
+    the R-50 starts from the stage-1 phase's checkpoints and hands its own AF
+    interpolator to a stage-3 trainer, each load held equal to its file on
+    the card; it then holds the pool's backward on one step's own ROIs
+    against its plain version."""
     import json as _json
     import shutil
     import types
@@ -2565,27 +2757,30 @@ def gan_phase(results, stage):
     from afigan_tpu_torch.engine.checkpoint import AFI_PREFIX
     from afigan_tpu_torch.engine.trainers import (AFExtractorTrainer, AFIGANTrainer,
                                                   TargetDetectorTrainer)
+    from afigan_tpu_torch.models.layers import BatchNorm2d
     from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
     from afigan_tpu_torch.tools.kernel_sweep import capture_pool_backward
     from afigan_tpu_torch.utils.converters import load_state_dict
 
-    s1 = stage == "stage1"
+    s1, handoff = stage == "stage1", stage == "stage2"
     mod = stage1 if s1 else stage2
+    yaml, canvas, per_step = GAN_STAGES[stage]
+    half = (canvas[0] // 2, canvas[1] // 2)
     out_dir = Path(__file__).resolve().parent / "output" / f"chip_smoke_{stage}"
     shutil.rmtree(out_dir, ignore_errors=True)
     records = train_records(torch.Generator().manual_seed(7))
     coco.register_dataset("chip_smoke_train", lambda: types.SimpleNamespace(records=records))
-    cfg = gan_cfg(STEP1_YAML if s1 else STEP2_YAML, out_dir)
+    cfg = gan_cfg(yaml, out_dir)
     cfg.SOLVER.MAX_ITER = 2
     cfg.SOLVER.CHECKPOINT_PERIOD = 2
     mapper = DatasetMapper(cfg, is_train=True, seed=0, dual_scale=True)
     batch = collate_batch([mapper(r) for r in records], cfg.TPU.IMAGE_BUCKETS,
-                          required_size_divisibility(cfg), dual_scale=True)
+                          required_size_divisibility(cfg, dual_scale=True), dual_scale=True)
     canvases = (tuple(batch["image"].shape[1:3]), tuple(batch["image_x0.5"].shape[1:3]))
-    if canvases != (R50_CANVAS, HALF_CANVAS):
-        raise AssertionError(f"{stage}: canvases {canvases} != {(R50_CANVAS, HALF_CANVAS)}")
-    if not s1:  # the hand-off from stage 1: the stage-1 phase's G and D
+    if canvases != (canvas, half):
+        raise AssertionError(f"{stage}: canvases {canvases} != {(canvas, half)}")
+    if handoff:  # the hand-off from stage 1: the stage-1 phase's G and D
         s1_dir = out_dir.parent / "chip_smoke_stage1"
         handed = {"G": s1_dir / "G_0" / "model_0000002.pth",
                   "D": s1_dir / "D_0" / "model_0000002.pth"}
@@ -2593,7 +2788,7 @@ def gan_phase(results, stage):
     t0 = time.perf_counter()
     trainer = (AFIGANTrainer if s1 else AFExtractorTrainer)(cfg, device="cuda")
     state = trainer.state
-    if not s1:
+    if handoff:
         n = check_loaded(state.model, handed["G"], AFI_PREFIX)
         n += check_loaded(state.discriminator, handed["D"])
         log(f"  stage2: the stage-1 phase's G_0/ and D_0/ checkpoints loaded on the card "
@@ -2610,7 +2805,7 @@ def gan_phase(results, stage):
     key = "g_loss" if s1 else "total_loss"
     if not all(c.is_file() for c in ckpts) or not all(np.isfinite(r[key]) for r in lines):
         raise AssertionError(f"{stage} train(): no checkpoint or a non-finite loss: {lines}")
-    if not s1:  # the hand-off to stage 3: this phase's AF interpolator
+    if handoff:  # the hand-off to stage 3: this phase's AF interpolator
         cfg3 = train_cfg(out_dir / "stage3")
         cfg3.MODEL.AF_EXTRACTOR_WEIGHTS = str(ckpts[0])
         t3 = TargetDetectorTrainer(cfg3, device="cuda")
@@ -2628,35 +2823,31 @@ def gan_phase(results, stage):
         f"{n_train:.2f}M trainable parameters of {'G' if s1 else 'the detector'}, "
         f"{n_disc:.2f}M of D; {n_bn} FrozenBN statistics calibrated on the batch")
 
-    def tensors():  # G (stage 1) or the detector's trainable tensors, and D's
+    def tensors():  # G (stage 1) or the detector's trainable tensors, D's, and
+        # the running statistics of the detector's batch norms that train
         return {**{"G." + n: p for n, p in trained.named_parameters() if p.requires_grad},
-                **{"D." + n: p for n, p in state.discriminator.named_parameters()}}
+                **{"D." + n: p for n, p in state.discriminator.named_parameters()},
+                **{"S." + n: b for n, b in trained.named_buffers()
+                   if "running_" in n and isinstance(trained.get_submodule(
+                       n.rsplit(".", 1)[0]), BatchNorm2d)}}
 
     before = {k: v.detach().clone() for k, v in tensors().items()}
 
     def step():
         return mod.train_step(cfg, state, inputs, *(() if s1 else (draws,)))
 
-    steps, ms = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
-        t0 = time.perf_counter()
-        m = step()
-        torch.cuda.synchronize()
-        if i >= TRAIN_WARMUP:
-            ms.append(1000 * (time.perf_counter() - t0))
-        steps.append(m)
+    steps, ms, ev = timed_steps(step)
     counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = len(steps)
-    if not s1:  # one more step: the bounds of its launches
+    if handoff:  # one more step: the bounds of its launches
         with BoundCapture() as bounds:
             step()
         bounds.log(f"{stage}, one step")
     log(f"  {stage}: launches in {n} steps " + _json.dumps(counts))
-    per_step = STAGE1_PER_STEP if s1 else STAGE2_PER_STEP
     for k, per in per_step.items():
         if counts[k] != per * n:
             raise AssertionError(f"{stage}: {counts[k]} launches of {k} in {n} steps, "
@@ -2672,16 +2863,24 @@ def gan_phase(results, stage):
     for side in ("G", "D"):
         if not any(v for k, v in moved.items() if k.startswith(side + ".")):
             raise AssertionError(f"{stage}: {side} did not change over {n} steps")
+    # the FCOS BiFPN: 6 norms before its layers and 8 a layer, 2 statistics each
+    n_stats = sum(k.startswith("S.") for k in before)
+    if n_stats != (2 * (6 + 8 * cfg.MODEL.BIFPN.FPN_REPEAT) if stage == "stage2_fcos" else 0):
+        raise AssertionError(f"{stage}: {n_stats} running statistics of batch norm that trains")
+    stuck = [k for k in before if k.startswith("S.") and not moved[k]]
+    if stuck:
+        raise AssertionError(f"{stage}: running statistics that did not move: {stuck[:4]}")
     if any(p.grad is not None for p in state.discriminator.parameters()):
         raise AssertionError(f"{stage}: a gradient is left on D after the step")
     med = float(np.median(ms))
     log(f"  {stage}: {med:.1f} ms per step of 2 images (median of {len(ms)}; min "
         f"{min(ms):.1f}, max {max(ms):.1f}), {2000 / med:.3f} images/s at the median, "
-        f"{R50_CANVAS[0]}x{R50_CANVAS[1]} canvas and its {HALF_CANVAS[0]}x{HALF_CANVAS[1]} "
+        f"by CUDA events {np.median(ev):.1f} ms ({min(ev):.1f}-{max(ev):.1f}), "
+        f"{canvas[0]}x{canvas[1]} canvas and its {half[0]}x{half[1]} "
         f"half, bf16, lr {cfg.SOLVER.BASE_LR}; peak memory {peak:.2f} GiB; "
-        f"{sum(moved.values())} of {len(moved)} tensors of {'G' if s1 else 'the detector'} and "
-        "D moved, no gradient left on D")
-    if not s1:
+        f"{sum(moved.values())} of {len(moved)} tensors of {'G' if s1 else 'the detector'}, "
+        f"D and {n_stats} batch-norm statistics moved, no gradient left on D")
+    if handoff:
         for k in ("roi_pool", "roi_pool_bwd", "nms"):
             results[k].setdefault("launches", {})["stage2"] = counts[k] // n
 
@@ -2727,7 +2926,7 @@ def gan_phase(results, stage):
     log(f"  {stage}: {tflop:.2f} TFLOP a step (convolutions and products, forward and "
         f"backward, PyTorch's FLOP counter): at least {bound:.1f} ms at 989 TFLOP/s "
         f"(bf16); the median step is {med / bound:.2f}x that")
-    if not s1:
+    if handoff:
         calls = capture_pool_backward(step)
         del trainer, state, inputs
         check_train_pool_backward(results, calls, path="stage2")
@@ -2743,6 +2942,10 @@ def phase_stage2(results):
     gan_phase(results, "stage2")
 
 
+def phase_stage2_fcos(results):
+    gan_phase(results, "stage2_fcos")
+
+
 # the narrow configs of the CPU tests tests/test_torch_port_stage{1,2}.py
 NARROW_GAN = [
     "TPU.COMPUTE_DTYPE", "float32", "MODEL.AFI.IN_CHANNELS", "16", "MODEL.AFI.N_RDB", "1",
@@ -2750,14 +2953,30 @@ NARROW_GAN = [
     "MODEL.RPN.PRE_NMS_TOPK_TRAIN", "64", "MODEL.RPN.POST_NMS_TOPK_TRAIN", "32",
     "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "16", "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16",
     "SOLVER.BASE_LR", "0.001", "SOLVER.WARMUP_ITERS", "0"]
+# the FCOS step-2 YAML at the widths of tests/test_torch_port_fcos_train.py:
+# ResNet-50 at an eighth of its widths, BiFPN 2 x 32, one tower conv
+NARROW_FCOS = [
+    "TPU.COMPUTE_DTYPE", "float32", "MODEL.RESNETS.RES2_OUT_CHANNELS", "32",
+    "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
+    "MODEL.BIFPN.OUT_CHANNELS", "32", "MODEL.BIFPN.FPN_REPEAT", "2",
+    "MODEL.AFI.IN_CHANNELS", "32", "MODEL.AFI.N_RDB", "1", "MODEL.AFI.GROWTH_RATE", "8",
+    "MODEL.FCOS.NUM_CONVS", "1", "MODEL.FCOS.NUM_CLASSES", "3",
+    "SOLVER.BASE_LR", "0.001", "SOLVER.WARMUP_ITERS", "0"]
+# stage → (YAML, narrow config, full canvas)
+NARROW_STAGES = {"stage1": (STEP1_YAML, NARROW_GAN, (128, 128)),
+                 "stage2": (STEP2_YAML, NARROW_GAN, (256, 256)),
+                 "stage2_fcos": (STEP2_FCOS_YAML, NARROW_FCOS, (256, 512))}
 
 
 def gan_narrow_run(stage, dev, cpu_state=None, scale=1.0):
     """One narrow float32 step of ``stage`` on ``dev``: weights from a seeded
     generator with the FrozenBN statistics calibrated on the batch (on the
     CPU), or ``cpu_state``'s; the x0.5 images times ``scale``. Returns
-    (metrics, {name: gradient}, D's state dict after the step, the state
-    dicts before it, the wrappers' launch counts)."""
+    (metrics, {name: gradient}, D's state dict after the step and the
+    trained model's running statistics, the state dicts before it, the
+    wrappers' launch counts). The FCOS step's images are noise over a ramp
+    of their own direction each: its p7 is 1x2 an image, and D's batch norm
+    over the noise of two alike images is ill-conditioned."""
     import torch
 
     from afigan_tpu_torch.config import cfg_from_yaml
@@ -2767,20 +2986,25 @@ def gan_narrow_run(stage, dev, cpu_state=None, scale=1.0):
 
     s1 = stage == "stage1"
     mod = stage1 if s1 else stage2
-    cfg = cfg_from_yaml(STEP1_YAML if s1 else STEP2_YAML)
-    cfg.merge_from_list(NARROW_GAN)
-    side = 128 if s1 else 256
-    img = (np.random.RandomState(5).rand(2, side, side, 3) * 255).astype(np.float32)
-    half = img.reshape(2, side // 2, 2, side // 2, 2, 3).mean(axis=(2, 4)) * np.float32(scale)
+    yaml, narrow, (h, w) = NARROW_STAGES[stage]
+    cfg = cfg_from_yaml(yaml)
+    cfg.merge_from_list(narrow)
+    img = (np.random.RandomState(5).rand(2, h, w, 3) * 255).astype(np.float32)
+    if stage == "stage2_fcos":
+        img = img / 2
+        img[0] += 128 * np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
+        img[1] += 128 * np.linspace(1.0, 0.0, h, dtype=np.float32)[:, None, None]
+    half = img.reshape(2, h // 2, 2, w // 2, 2, 3).mean(axis=(2, 4)) * np.float32(scale)
     boxes = np.zeros((2, 4, 4), np.float32)
     boxes[:, 0] = [8, 8, 40, 32]
     boxes[:, 1] = [20, 24, 60, 56]
     batch = {"image": img, "image_x0.5": half,
-             "image_sizes_x0.5": np.asarray([[side // 2] * 2] * 2, np.int32),
+             "image_sizes_x0.5": np.asarray([[h // 2, w // 2]] * 2, np.int32),
              "gt_x0.5": {"boxes": boxes, "classes": np.zeros((2, 4), np.int32),
                          "valid": np.array([[True, True, False, False]] * 2),
                          "masks": np.random.RandomState(6).rand(2, 4, 28, 28).astype(np.float32)}}
-    state = getattr(mod, f"init_{stage}_state")(cfg, dev, torch.Generator().manual_seed(1))
+    state = mod.init_stage1_state(cfg, dev, torch.Generator().manual_seed(1)) if s1 else \
+        mod.init_stage2_state(cfg, dev, torch.Generator().manual_seed(1))
     trained = state.generator if s1 else state.model
     modules = {"guide": state.guide, "trained": trained, "D": state.discriminator}
     if cpu_state is None:
@@ -2805,6 +3029,7 @@ def gan_narrow_run(stage, dev, cpu_state=None, scale=1.0):
         for h in hooks:
             h.remove()
     d_after = {n: v.cpu() for n, v in state.discriminator.state_dict().items()}
+    d_after.update({"S." + n: v.cpu() for n, v in trained.named_buffers() if "running_" in n})
     return metrics, grads, d_after, sd, dict(LAUNCHES)
 
 
@@ -2821,14 +3046,17 @@ def phase_stage12_card_vs_cpu(results):
     of all, or (stage 2, the ResNet's res3-res5 alone, each such tensor
     logged) twice the CPU's own spread under a 1 + 1e-6 scale of the x0.5
     images, at most 5e-3 of its largest entry, where the random detector's
-    deep gradients are that ill conditioned; D's statistics after the step at 1e-4 of each tensor's
-    largest entry. On the card stage 2 runs the pool's forward and backward
-    kernels and NMS: 2 launches each."""
-    for stage, per in (("stage1", STAGE1_PER_STEP), ("stage2", STAGE2_PER_STEP)):
+    deep gradients are that ill conditioned; D's statistics (and those of the
+    FCOS BiFPN's batch norms) after the step at 1e-4 of each tensor's largest
+    entry. Stage 2 runs twice: the R-50 step-2 YAML, whose detector launches
+    the pool's forward and backward kernels and NMS on the card (2 each), and
+    the FCOS R-50-BiFPN step-2 YAML, which launches none."""
+    for stage in ("stage1", "stage2", "stage2_fcos"):
+        per = GAN_STAGES[stage][2]
         mc, gc, dc, sd, _ = gan_narrow_run(stage, "cpu")
         mg, gg, dg, _, launched = gan_narrow_run(stage, "cuda", sd)
         spread = {}
-        if stage == "stage2":
+        if stage != "stage1":
             _, g2, _, _, _ = gan_narrow_run(stage, "cpu", sd, scale=1.0 + 1e-6)
             spread = {n: float((g2[n] - g).abs().max()) for n, g in gc.items()}
         for k, want in mc.items():
@@ -2855,7 +3083,7 @@ def phase_stage12_card_vs_cpu(results):
             if "running_" in name:
                 err = float((dg[name] - want).abs().max())
                 if not err <= 1e-4 * float(want.abs().max()):
-                    raise AssertionError(f"{stage} D statistic {name}: {err}")
+                    raise AssertionError(f"{stage} statistic {name}: {err}")
         for k, n in per.items():
             if launched[k] != n:
                 raise AssertionError(f"{stage} card_vs_cpu: {launched[k]} launches of {k}, "
@@ -3131,7 +3359,9 @@ def main():
                         ("slice_pafpn", phase_slice_pafpn),
                         ("slice_resnest", phase_slice_resnest), ("tta", phase_tta),
                         ("nms_ab", phase_nms_ab), ("train", phase_train),
+                        ("train_centermask", phase_train_centermask),
                         ("stage1", phase_stage1), ("stage2", phase_stage2),
+                        ("stage2_fcos", phase_stage2_fcos),
                         ("card_vs_cpu", phase_card_vs_cpu),
                         ("train_card_vs_cpu", phase_train_card_vs_cpu),
                         ("stage12_card_vs_cpu", phase_stage12_card_vs_cpu)):

@@ -29,7 +29,8 @@ running statistics at 1e-5 and D's parameters by their update as in
 
 Also: "real" (the guide's levels resized by half) against
 ``jax.image.resize`` on odd and even maps, ``gan_levels`` on every YAML under
-``configs/``, and the FCOS step-2 YAML refused before anything is built.
+``configs/``, and the FCOS step-2 YAML accepted (``tests/test_torch_port_fcos_train.py``
+holds its step against JAX).
 """
 
 import functools
@@ -47,8 +48,9 @@ from afigan_tpu.models.roi_heads import GroundTruth as JaxGroundTruth
 from afigan_tpu_torch.engine import stage2
 from afigan_tpu_torch.utils.converters import discriminator_state_dict, variables_to_state_dict
 from tests.torch_port_common import REPO
-from tests.torch_port_train_common import (calibrated_guide, calibrated_jax_params, det_batch,
-                                           patch_jax_sampler, port_draws)
+from tests.torch_port_train_common import (GradsInState, calibrated_guide,
+                                           calibrated_jax_params, det_batch, patch_jax_sampler,
+                                           port_draws)
 
 STEP2_YAML = (f"{REPO}/configs/step2_af_extractor_training/"
               "step2_af_extractor_mask_rcnn_R_50_FPN_1x.yaml")
@@ -85,21 +87,6 @@ def stage2_batch():
             "gt_x0.5": det_batch()["gt"]}
 
 
-class _GradsInState:
-    """Wraps the detector's optax transform: its state also carries the
-    gradient of the last update."""
-
-    def __init__(self, tx):
-        self.tx = tx
-
-    def init(self, params):
-        return (self.tx.init(params), jax.tree.map(jnp.zeros_like, params))
-
-    def update(self, grads, state, params=None):
-        updates, inner = self.tx.update(grads, state[0], params)
-        return updates, (inner, grads)
-
-
 @functools.lru_cache(maxsize=None)
 def _jax_run():
     """The JAX step, once per file: (weights before: detector params, D
@@ -112,7 +99,7 @@ def _jax_run():
 
         def build(cfg, params, frozen=(), *a, **k):
             tx, sched = real_build(cfg, params, frozen, *a, **k)
-            return (_GradsInState(tx) if frozen else tx), sched
+            return (GradsInState(tx) if frozen else tx), sched
 
         mp.setattr(jstage2, "build_optimizer", build)
         jcfg, cfg = stage2_cfgs()
@@ -279,7 +266,11 @@ def test_gan_levels_equal_jax(path):
     assert out[0] == out[1]
 
 
-def test_fcos_step2_config_refused_before_anything_is_built(monkeypatch):
+def test_fcos_step2_config_refused_before_anything_is_built(monkeypatch, tmp_path):
+    """The FCOS step-2 YAML trains (below); what the port still refuses of it
+    is PreciseBN (``TEST.PRECISE_BN.ENABLED`` with an evaluation period) over
+    its BiFPN's batch norm that trains, and the trainer refuses it from the
+    config, before any model is built."""
     from afigan_tpu_torch.config import get_cfg
     from afigan_tpu_torch.engine.trainers import AFExtractorTrainer
     from afigan_tpu_torch.models import build as build_mod
@@ -292,7 +283,35 @@ def test_fcos_step2_config_refused_before_anything_is_built(monkeypatch):
     cfg = get_cfg()
     cfg.merge_from_file(f"{REPO}/configs/step2_af_extractor_training/"
                         "step2_af_extractor_fcos_R_50_BiFPN.yaml")
+    cfg.merge_from_list(["TEST.PRECISE_BN.ENABLED", "True", "TEST.EVAL_PERIOD", "10",
+                         "OUTPUT_DIR", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="queue 1 #6"):
+        AFExtractorTrainer(cfg, device="cpu")
+
+
+def test_fcos_step2_config_builds_the_fcos_detector_for_training(monkeypatch, tmp_path):
+    """The FCOS step-2 YAML is no longer refused: the stage-2 state and its
+    trainer go straight to building the FCOS detector in training mode (the
+    first model built; the test stops the build there)."""
+    from afigan_tpu_torch.config import get_cfg
+    from afigan_tpu_torch.engine.trainers import AFExtractorTrainer
+
+    class Built(Exception):
+        pass
+
+    built = []
+
+    def record(cfg, *a, **k):
+        built.append((cfg.MODEL.META_ARCHITECTURE, k.get("train")))
+        raise Built  # stop: nothing else is needed
+
+    monkeypatch.setattr(stage2, "build_model", record)
+    cfg = get_cfg()
+    cfg.merge_from_file(f"{REPO}/configs/step2_af_extractor_training/"
+                        "step2_af_extractor_fcos_R_50_BiFPN.yaml")
+    cfg.OUTPUT_DIR = str(tmp_path)
     for make in (lambda: stage2.init_stage2_state(cfg, device="cpu"),
                  lambda: AFExtractorTrainer(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6d"):
+        with pytest.raises(Built):
             make()
+    assert built == [("FCOS", True)] * 2

@@ -1,4 +1,4 @@
-"""The narrow stage 1-3 config of the port's trainer tests (no JAX import:
+"""The narrow configs and batches of the port's trainer tests (no JAX import:
 the tests on the card use it too; not collected by pytest)."""
 
 # a narrow Mask R-CNN R-50-FPN(AFI) for the stage 1-3 trainers and CLIs on
@@ -18,3 +18,62 @@ GAN_TINY = [
     "SOLVER.IMS_PER_BATCH", "2", "SOLVER.BASE_LR", "0.001", "SOLVER.CHECKPOINT_PERIOD", "2",
     "SEED", "3",
 ]
+
+# the FCOS R-50-BiFPN step-2 YAML at narrow widths (the BiFPN and D of
+# tests/test_stage2_fcos_bifpn.py, a ResNet-50 at an eighth of its widths)
+FCOS_NARROW = [
+    "TPU.COMPUTE_DTYPE", "float32", "MODEL.RESNETS.RES2_OUT_CHANNELS", "32",
+    "MODEL.RESNETS.STEM_OUT_CHANNELS", "16", "MODEL.RESNETS.WIDTH_PER_GROUP", "8",
+    "MODEL.BIFPN.OUT_CHANNELS", "32", "MODEL.BIFPN.FPN_REPEAT", "2",
+    "MODEL.AFI.IN_CHANNELS", "32", "MODEL.AFI.N_RDB", "1", "MODEL.AFI.GROWTH_RATE", "8",
+    "MODEL.FCOS.NUM_CONVS", "1", "MODEL.FCOS.NUM_CLASSES", "3",
+    "SOLVER.BASE_LR", "0.001", "SOLVER.WARMUP_ITERS", "0"]
+
+# the CenterMask R-50-BiFPN YAML trained as the JAX bench does (AF interpolator
+# not frozen) at the same widths; its FCOS decode of training at threshold 0
+# with 64 / 16 candidates, so that the mask branch samples the head's own
+# detections; 8 GT slots (max_fg 8)
+CENTERMASK_NARROW = [
+    "TPU.COMPUTE_DTYPE", "float32", "MODEL.AFI_FREEZE", "False",
+    "MODEL.RESNETS.RES2_OUT_CHANNELS", "32", "MODEL.RESNETS.STEM_OUT_CHANNELS", "16",
+    "MODEL.RESNETS.WIDTH_PER_GROUP", "8", "MODEL.BIFPN.OUT_CHANNELS", "32",
+    "MODEL.BIFPN.FPN_REPEAT", "2", "MODEL.AFI.N_RDB", "1", "MODEL.AFI.GROWTH_RATE", "8",
+    "MODEL.FCOS.NUM_CONVS", "1", "MODEL.FCOS.NUM_CLASSES", "3",
+    "MODEL.FCOS.INFERENCE_TH_TRAIN", "0.0", "MODEL.FCOS.PRE_NMS_TOPK_TRAIN", "64",
+    "MODEL.FCOS.POST_NMS_TOPK_TRAIN", "16", "MODEL.PIXEL_STD", "(57.375, 57.12, 58.395)",
+    "TPU.MAX_GT_BOXES", "8", "SOLVER.BASE_LR", "0.001", "SOLVER.WARMUP_ITERS", "0"]
+
+
+def fcos_stage2_batch(gt):
+    """A collated dual-scale batch of two 256x512 images, their 2x2-mean
+    halves (128x256) and the half-scale GT ``gt`` (boxes, classes, valid). On
+    a 128x128 half p7 would be one pixel an image, and D's batch norm over
+    the batch's two values a channel is ill-conditioned (the summation order
+    alone moves D's losses and update by percents); at 128x256 it normalises
+    four. Each image is noise over a ramp of its own direction, so that those
+    values differ."""
+    import numpy as np
+
+    img = np.random.RandomState(5).rand(2, 256, 512, 3).astype(np.float32) * 127
+    img[0] += 128 * np.linspace(0.0, 1.0, 512, dtype=np.float32)[None, :, None]
+    img[1] += 128 * np.linspace(1.0, 0.0, 256, dtype=np.float32)[:, None, None]
+    boxes, classes, valid = gt
+    return {"image": img, "image_x0.5": img.reshape(2, 128, 2, 256, 2, 3).mean(axis=(2, 4)),
+            "image_sizes_x0.5": np.asarray([[128, 256]] * 2, np.int32),
+            "gt_x0.5": {"boxes": boxes, "classes": classes, "valid": valid}}
+
+
+def centermask_batch():
+    """Two 128x256 images, 8 GT slots with 4 valid boxes each, 28x28 masks."""
+    import numpy as np
+
+    rs = np.random.RandomState(3)
+    b, m = 2, 8
+    boxes = np.zeros((b, m, 4), np.float32)
+    boxes[:, :4] = [[8, 8, 60, 48], [30, 40, 100, 90], [120, 10, 200, 120], [150, 60, 250, 126]]
+    boxes[1, :4] += 4.0
+    return {"image": (rs.rand(b, 128, 256, 3) * 255).astype(np.float32),
+            "image_sizes": np.asarray([[128, 256]] * b, np.int32),
+            "gt": {"boxes": boxes, "classes": rs.randint(0, 3, (b, m)).astype(np.int32),
+                   "valid": np.arange(m)[None].repeat(b, 0) < 4,
+                   "masks": (rs.rand(b, m, 28, 28) > 0.5).astype(np.float32)}}

@@ -139,3 +139,53 @@ def det_batch(b=2, h=64, w=64, m=4, seed=0):
                "valid": np.array([[True, True, False, False]] * b),
                "masks": rng.rand(b, m, 28, 28).astype(np.float32)},
     }
+
+
+class GradsInState:
+    """Wraps an optax transform: its state also carries the gradient of the
+    last update, so that a JAX train step's gradients can be read back."""
+
+    def __init__(self, tx):
+        self.tx = tx
+
+    def init(self, params):
+        return (self.tx.init(params), jax.tree.map(jnp.zeros_like, params))
+
+    def update(self, grads, state, params=None):
+        updates, inner = self.tx.update(grads, state[0], params)
+        return updates, (inner, grads)
+
+
+def to_jax_variables(template, state, key=None):
+    """A port state dict (name → array) as the JAX tree of ``template`` (its
+    ``params`` and ``batch_stats``, e.g. from ``jax.eval_shape`` of an init:
+    nothing compiled): the inverse of the port's own ``variables_to_state_dict``
+    mapping, each layout transform inverted by applying it to the leaf's flat
+    indices. ``key``: path → (state-dict key, transform), the port's
+    ``translate_path`` by default. Every leaf is filled and every entry of
+    ``state`` used, or it raises."""
+    from afigan_tpu_torch.utils.converters import _fc1_channels, _leaves, translate_path
+
+    if key is None:
+        params = template["params"]
+        step = 3 if "norm" in params.get("fcos_head", {}).get("cls_tower0", {}) else 2
+        fc1 = _fc1_channels(params)
+        key = lambda path: translate_path(path, fc1, step)  # noqa: E731
+    out, used = {}, set()
+    for coll, tree in template.items():
+        out[coll] = {}
+        for path, leaf in _leaves(tree):
+            name, tf = key(path)
+            shape = tuple(np.shape(leaf))
+            idx = np.asarray(tf(np.arange(int(np.prod(shape))).reshape(shape)))
+            src = np.asarray(state[name], np.float32)
+            assert idx.shape == src.shape, (name, idx.shape, src.shape)
+            flat = np.empty(idx.size, np.float32)
+            flat[idx.ravel()] = src.ravel()
+            node = out[coll]
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = flat.reshape(shape)
+            used.add(name)
+    assert used == set(state), sorted(set(state) - used)[:8]
+    return out
