@@ -15,7 +15,8 @@ same model returning its features too) with ``StandardROIHeads`` or
 In a training build (``train``) every BN and SyncBN trains
 (``layers.unfreeze_batch_norms``). Every other name raises ``NotImplementedError`` naming
 the ROADMAP item: queue 1 #6 for keypoints, ``Res5ROIHeads`` and
-``ProposalNetwork``, #2 for Cascade training, #7 for the deformable conv.
+``ProposalNetwork``, #7 for the deformable conv, #8 for training a Swin
+bottom-up.
 """
 
 from __future__ import annotations
@@ -119,10 +120,10 @@ def build_roi_heads(cfg, device=None) -> StandardROIHeads:
         iou_threshold=rh.IOU_THRESHOLDS[0], append_gt=rh.PROPOSAL_APPEND_GT,
         smooth_l1_beta=bh.SMOOTH_L1_BETA, device=device)
     if rh.NAME == "CascadeROIHeads":
+        cas = cfg.MODEL.ROI_BOX_CASCADE_HEAD
         return CascadeROIHeads(
-            cascade_bbox_reg_weights=tuple(
-                tuple(w) for w in cfg.MODEL.ROI_BOX_CASCADE_HEAD.BBOX_REG_WEIGHTS),
-            **common)
+            cascade_bbox_reg_weights=tuple(tuple(w) for w in cas.BBOX_REG_WEIGHTS),
+            cascade_ious=tuple(cas.IOUS), **common)
     return StandardROIHeads(**common)
 
 
@@ -197,14 +198,17 @@ def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None,
     With ``generator``, weights are drawn from it (the JAX package's init
     distributions); otherwise they are torch's defaults, to be replaced by
     ``load_state_dict``. ``train`` builds the training model (BN / SyncBN
-    that train, FCOS's ``_TRAIN`` thresholds) in training mode; Cascade R-CNN
-    does not train yet."""
+    that train, FCOS's ``_TRAIN`` thresholds) in training mode; a Swin
+    bottom-up does not train yet: the port's Swin has no DropPath
+    (``MODEL.SWINT.DROP_PATH_RATE``, which the JAX package trains with)."""
     device = check_device(device, "build_model")
     arch = cfg.MODEL.META_ARCHITECTURE
     rcnn = ("GeneralizedRCNN", "GeneralizedRCNN_AFExtractor")
-    if train and arch in rcnn and cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads":
-        raise NotImplementedError("training Cascade R-CNN is not ported yet (ROADMAP "
-                                  "queue 1 #2)")
+    if train and _BACKBONES.get(cfg.MODEL.BACKBONE.NAME, ("",))[0] == "swin":
+        raise NotImplementedError(
+            "training a Swin bottom-up is not ported yet: DropPath with its random keys "
+            "and the autograd routes of the attention and LayerNorm kernels (ROADMAP "
+            "queue 1 #8)")
     if arch in ("FCOS", "CenterMask"):
         model = (build_fcos if arch == "FCOS" else build_centermask)(cfg, device)
     elif arch in rcnn:

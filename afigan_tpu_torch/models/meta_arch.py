@@ -5,7 +5,8 @@ heads. d2 key prefixes: ``backbone.``, ``proposal_generator.rpn_head.``,
 ``roi_heads.``.
 
 In training mode, given the padded ground truth, the forward returns the
-losses (RPN, box, mask, and the ``diag_fg_frac`` monitor); the RPN's
+losses (RPN, box, mask, and the ``diag_fg_frac`` monitor; a cascade's
+per stage, ``loss_{cls,box_reg}_stage{k}`` and ``diag_fg_frac_stage{k}``); the RPN's
 pre/post-NMS top-k are the ``_TRAIN`` values then and the ``_TEST`` values in
 eval mode. ``draws`` is the source of the two subsamples' uniform keys
 (``ops/sampling.py::draw``). With ``return_features`` (the
@@ -126,7 +127,8 @@ class GeneralizedRCNN(nn.Module):
                 losses = self._rpn_losses(anchors, logits, deltas, gt, draws)
         with record_function("roi_heads"):
             if train:
-                losses.update(self.roi_heads.losses(features, proposals, gt, draws))
+                losses.update(self.roi_heads.losses(features, proposals, image_sizes, gt,
+                                                    draws))
                 out = losses
             else:
                 out = self.roi_heads(features, proposals, image_sizes)

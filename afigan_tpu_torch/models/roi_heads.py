@@ -189,10 +189,11 @@ class StandardROIHeads(nn.Module):
     # ------------------------------------------------------------------
 
     def losses(self, features: Dict[str, torch.Tensor], proposals: RPNOutput,
-               gt: GroundTruth, draws=None) -> Dict[str, torch.Tensor]:
+               image_sizes, gt: GroundTruth, draws=None) -> Dict[str, torch.Tensor]:
         """{loss_cls, loss_box_reg[, loss_mask], diag_fg_frac}: the last a
         monitor (the sampled foreground fraction), left out of the total.
-        ``draws``: the subsample's key source (``ops/sampling.py::draw``)."""
+        ``image_sizes`` is not read here (a cascade clips its stages' boxes to
+        them). ``draws``: the subsample's key source (``ops/sampling.py::draw``)."""
         sampled = sample_proposals(
             proposals.proposals.detach(), proposals.valid, gt, self.batch_size_per_image,
             self.positive_fraction, self.matcher, self.num_classes, self.append_gt, draws)

@@ -2234,6 +2234,10 @@ TRAIN_PER_STEP = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0, "roi_pool": 2
 # decode NMS call an image (the mask branch's proposals)
 CENTERMASK_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, roi_pool=1, roi_pool_bwd=1)
 CENTERMASK_YAML = "inference/AFI-GAN_centermask_R_50_BiFPN.yaml"
+# Cascade: the three box stages' pools (7x7) and the mask pool (14x14), forward
+# and backward; the RPN's NMS an image (the cascade adds none in training)
+CASCADE_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, roi_pool=4, roi_pool_bwd=4)
+CASCADE_YAML = "inference/AFI-GAN_cascade_mask_rcnn_ResNeSt101_PAFPN.yaml"
 
 
 def train_records(gen, n_img=2, hw=(800, 1333), n_obj=12):
@@ -2293,6 +2297,80 @@ def centermask_train_cfg(out_dir):
                      "MODEL.FCOS.INFERENCE_TH_TRAIN", "0.0")
 
 
+def cascade_train_cfg(out_dir):
+    """The Cascade Mask R-CNN ResNeSt-101-PAFPN YAML at full width (radix 2,
+    deep stem, AVD, SyncBN that trains everywhere, FREEZE_AT 2, RPN 2000
+    proposals after NMS, three 4-conv box heads, the normed mask head) with
+    the AF interpolator trained (``MODEL.AFI_FREEZE False``), as the JAX
+    bench's ``s101`` mode; otherwise ``train_cfg``'s."""
+    return train_cfg(out_dir, CASCADE_YAML, "MODEL.AFI_FREEZE", "False")
+
+
+def batch_norm_groups(model):
+    """The batch norms that train, by part of the model: {part: [module
+    name, ...]}."""
+    from afigan_tpu_torch.models.layers import BatchNorm2d
+
+    groups = {}
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm2d):
+            part = ("bottom-up" if name.startswith("backbone.bottom_up.") else
+                    "pyramid" if name.startswith("backbone.") else
+                    ".".join(name.split(".")[:3]) if ".box_head." in name else
+                    ".".join(name.split(".")[:2]))
+            groups.setdefault(part, []).append(name)
+    return groups
+
+
+def cascade_verify(path, model, before, steps):
+    """After the timed steps of ``train_cascade``: each stage's foreground
+    fraction above 0 at every step (the stage-1 and -2 rematch at 0.6 / 0.7
+    keeps something to regress on); every trainable parameter moved but the
+    split attention's fc1 biases, whose gradient batch norm zeroes; every
+    running statistic of the batch norms that train moved (the bottom-up's,
+    the frozen stem's and res2's included, the pyramid's, each box head's and
+    the mask head's); the frozen parameters (the deep stem and res2) did
+    not."""
+    import torch
+
+    for k in range(3):
+        fg = [m[f"diag_fg_frac_stage{k}"] for m in steps]
+        if not min(fg) > 0:
+            raise AssertionError(f"{path}: stage {k} foreground fraction by step {fg}")
+    log(f"  {path}: foreground fraction of stages 0 / 1 / 2, first step " + " / ".join(
+        f"{steps[0][f'diag_fg_frac_stage{k}']:.4f}" for k in range(3)) + ", last step "
+        + " / ".join(f"{steps[-1][f'diag_fg_frac_stage{k}']:.4f}" for k in range(3)))
+    after = model.state_dict()
+    params = dict(model.named_parameters())
+    frozen = [n for n, p in params.items() if not p.requires_grad]
+    if not frozen or not all(".stem." in n or ".res2." in n for n in frozen):
+        raise AssertionError(f"{path}: frozen parameters {frozen[:4]}")
+    still = [n for n, p in params.items() if p.requires_grad and torch.equal(after[n], before[n])]
+    # the split attention's fc1 bias feeds bn1, batch norm that trains, which
+    # subtracts the batch mean: its gradient is zero (over two images, the
+    # two samples' gradients are exact negatives)
+    zero_grad = [n for n in still if n.endswith(".conv2.fc1.bias")]
+    moved_frozen = [n for n in frozen if not torch.equal(after[n], before[n])]
+    if set(still) - set(zero_grad) or moved_frozen:
+        raise AssertionError(
+            f"{path}: trainable parameters that did not move "
+            f"{sorted(set(still) - set(zero_grad))[:8]}, frozen ones that did {moved_frozen[:6]}")
+    groups = batch_norm_groups(model)
+    want = {"bottom-up", "pyramid", "roi_heads.mask_head",
+            *(f"roi_heads.box_head.{k}" for k in range(3))}
+    if set(groups) != want:
+        raise AssertionError(f"{path}: batch norms that train in {sorted(groups)}")
+    for part, names in groups.items():
+        stuck = [f"{n}.{s}" for n in names for s in ("running_mean", "running_var")
+                 if torch.equal(after[f"{n}.{s}"], before[f"{n}.{s}"])]
+        if stuck:
+            raise AssertionError(f"{path}: running statistics that did not move {stuck[:6]}")
+    log(f"  {path}: {len(params) - len(frozen) - len(zero_grad)} trainable parameters moved, "
+        f"{len(zero_grad)} fc1 biases before bn1 (a zero gradient) and {len(frozen)} frozen "
+        f"(deep stem, res2) did not; the running statistics of every batch norm moved: "
+        + ", ".join(f"{p} {len(n)}" for p, n in sorted(groups.items())))
+
+
 # the FCOS head's box distances at the start of train_centermask, in strides
 # (the bias of ``bbox_pred``): a seeded head regresses distances of a fraction
 # of a stride, half of them 0, boxes that neither overlap in NMS nor cover a
@@ -2339,7 +2417,13 @@ def phase_train_centermask(results):
                 CENTERMASK_TRAIN_PER_STEP, (14,), spread_fcos_boxes)
 
 
-def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=None):
+def phase_train_cascade(results):
+    train_phase(results, "train_cascade", cascade_train_cfg, R50_CANVAS,
+                CASCADE_TRAIN_PER_STEP, (7, 7, 7, 14), verify=cascade_verify)
+
+
+def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=None,
+                verify=None):
     """Stage-3 training at full width through ``TargetDetectorTrainer``: two
     iterations of ``train()`` over an in-memory dataset (mapper, loader,
     hooks, a checkpoint), then the main path: ``TRAIN_WARMUP`` + ``TRAIN_TIMED``
@@ -2352,7 +2436,8 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     sizes), whose calls phase ``train`` saves for ``kernel_sweep.py``. In the
     held step every NMS call has valid candidates and suppresses some, and
     the ROI sampler takes proposals besides the appended GT. ``prepare``: a
-    change to the seeded model before the first step."""
+    change to the seeded model before the first step; ``verify(path, model,
+    state dict before the timed steps, their metrics)``: checks after them."""
     import json as _json
     import shutil
     import types
@@ -2402,10 +2487,15 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     n_gt = int(inputs["gt"].valid.sum())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = ({k: v.clone() for k, v in trainer.model.state_dict().items()}
+              if verify is not None else None)
     reset_launches()
     steps, ms, ev = timed_steps(lambda: train_step(cfg, trainer.state, inputs, trainer.sampling))
     counts = dict(LAUNCHES)
     n = len(steps)
+    if verify is not None:
+        verify(path, trainer.model, before, steps)
+        del before
     with BoundCapture() as bounds:  # one more step: the bounds of its launches
         train_step(cfg, trainer.state, inputs, trainer.sampling)
     bounds.log(f"{path}, one step")
@@ -2546,12 +2636,13 @@ def phase_train_card_vs_cpu(results):
     weights (FrozenBN calibrated on the batch), batch and fixed subsample keys
     on the card and on the CPU: the losses at 1e-4 relative, each trainable
     gradient at 1e-3 of its largest entry (or 1e-5 of the largest of all).
-    Two models: the R-50 stage-3 YAML (on the card the pool's forward and
-    backward kernels at 2 launches each, 2 NMS) and the CenterMask
+    Three models: the R-50 stage-3 YAML (on the card the pool's forward and
+    backward kernels at 2 launches each, 2 NMS), the CenterMask
     R-50-BiFPN YAML on 128x256 images (its mask pool's forward and backward
-    at 32 channels, one launch each, and the FCOS decode's 2 NMS); the
-    CenterMask's BiFPN batch-norm statistics after the step at 1e-4 of each
-    tensor's largest entry."""
+    at 32 channels, one launch each, and the FCOS decode's 2 NMS) and the
+    cascade of ``narrow_cascade_train_cfg`` (4 pool launches each way, 2 NMS);
+    the batch-norm statistics that train (the CenterMask's BiFPN, every norm
+    of the cascade) after the step at 1e-4 of each tensor's largest entry."""
     from afigan_tpu_torch.config import cfg_from_yaml
 
     cfg = cfg_from_yaml(STEP3_YAML)
@@ -2562,9 +2653,45 @@ def phase_train_card_vs_cpu(results):
     # the BiFPN's 6 + 8 a layer batch norms, mean and variance each
     stage3_card_vs_cpu("centermask", cfg, narrow_train_batch(128, 256, 8),
                        CENTERMASK_TRAIN_PER_STEP, 2 * (6 + 8 * cfg.MODEL.BIFPN.FPN_REPEAT))
+    # every batch norm of the cascade trains: mean and variance each
+    stage3_card_vs_cpu("cascade", narrow_cascade_train_cfg(), narrow_train_batch(64, 64, 4),
+                       CASCADE_TRAIN_PER_STEP, None, small_residual_gamma)
 
 
-def stage3_card_vs_cpu(name, cfg, batch, per_step, n_stats):
+def narrow_cascade_train_cfg():
+    """The cascade YAML of ``train_cascade`` at ``narrow_resnest_cfg``'s widths
+    with the narrow stage-3 proposals and ROIs, float32, the AF interpolator
+    trained, over a ResNet-50 bottom-up with SyncBN
+    (``build_resnet_pafpn_sr_backbone``). Not over the ResNeSt: at batch 2 its
+    ``bn1`` normalises each channel over two pooled values, near-equal in
+    some channel of some block, and a float32 step of the narrow ResNeSt
+    differs from its own float64 step by 5e-2 in a loss and 1.5e3 times the
+    gradient bound on the CPU alone (tests/test_torch_port_cascade_train.py
+    holds ResNeSt's modules in training mode against JAX instead)."""
+    cfg = narrow_resnest_cfg()
+    cfg.merge_from_list(NARROW_STAGE3 + [
+        "MODEL.FPN.OUT_CHANNELS", "32", "MODEL.AFI_FREEZE", "False",
+        "MODEL.BACKBONE.NAME", "build_resnet_pafpn_sr_backbone",
+        "MODEL.RESNETS.STEM_OUT_CHANNELS", "16"])
+    return cfg
+
+
+def small_residual_gamma(model):
+    """Each bottleneck's last batch norm at a scale of 0.1 (the small-gamma
+    residual init that ``tools/frozen_bn.py`` gives FrozenBN): random residual
+    branches at full scale leave the deep gradients of a step so
+    ill-conditioned that float32 summation order moves them past the bound
+    (179 times it between the CPU's float32 and float64 steps of this model,
+    0.005 times it with the small scale)."""
+    import torch
+
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k.endswith("conv3.norm.weight") and ".bottom_up.res" in k:
+                v.fill_(0.1)
+
+
+def stage3_card_vs_cpu(name, cfg, batch, per_step, n_stats, prepare=None):
     import torch
 
     from afigan_tpu_torch.engine.stage3 import batch_to_device, init_stage3_state, loss_and_grads
@@ -2576,7 +2703,11 @@ def stage3_card_vs_cpu(name, cfg, batch, per_step, n_stats):
         state = init_stage3_state(cfg, dev, torch.Generator().manual_seed(1))
         if dev == "cpu":
             calibrate_frozen_bn(state.model, torch.from_numpy(batch["image"]))
+            if prepare is not None:
+                prepare(state.model)
             before = {k: v.clone() for k, v in state.model.state_dict().items()}
+            if n_stats is None:
+                n_stats = 2 * sum(len(v) for v in batch_norm_groups(state.model).values())
         else:
             state.model.load_state_dict(before)
         reset_launches()
@@ -3360,6 +3491,7 @@ def main():
                         ("slice_resnest", phase_slice_resnest), ("tta", phase_tta),
                         ("nms_ab", phase_nms_ab), ("train", phase_train),
                         ("train_centermask", phase_train_centermask),
+                        ("train_cascade", phase_train_cascade),
                         ("stage1", phase_stage1), ("stage2", phase_stage2),
                         ("stage2_fcos", phase_stage2_fcos),
                         ("card_vs_cpu", phase_card_vs_cpu),

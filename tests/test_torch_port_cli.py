@@ -135,3 +135,55 @@ def test_cli_verifies_expected_results(monkeypatch):
                               "TEST.EXPECTED_RESULTS", "[['bbox', 'AP', 40.0, 0.1]]"])
     with pytest.raises(RuntimeError, match="bbox/AP"):
         run_net.main(bad)
+
+
+def test_stage3_cli_trains_the_resnest_pafpn_cascade(tmp_path):
+    """``python -m afigan_tpu_torch.stage3_train --device cpu`` takes the
+    Cascade Mask R-CNN ResNeSt-PAFPN YAML (``MODEL.AFI_FREEZE False``, the
+    JAX bench's s101 mode) at narrow widths for two iterations on a tiny
+    COCO: finite losses of the three stages in ``metrics.json``, each stage's
+    foreground fraction logged, and a ``model_0000002.pth`` whose keys load
+    strictly into ``build_model(train=False)``."""
+    import json
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from afigan_tpu_torch import stage3_train
+    from afigan_tpu_torch.config import get_cfg
+    from afigan_tpu_torch.models import build_model
+    from afigan_tpu_torch.utils.converters import load_state_dict
+    from tests.fixtures import make_tiny_coco
+    from tests.torch_port_gan_tiny import CASCADE_NARROW
+
+    root, out = tmp_path / "root", tmp_path / "out"
+    json_path, img_dir = make_tiny_coco(str(tmp_path / "raw"), num_images=2, hw=(96, 128))
+    os.makedirs(root / "coco" / "annotations")
+    shutil.copy(json_path, root / "coco" / "annotations" / "instances_train2017.json")
+    shutil.copytree(img_dir, root / "coco" / "train2017")
+    yaml = os.path.join(REPO, "configs/inference/AFI-GAN_cascade_mask_rcnn_ResNeSt101_PAFPN.yaml")
+    opts = [*CASCADE_NARROW, "INPUT.MIN_SIZE_TRAIN", "(64, 72)", "INPUT.MAX_SIZE_TRAIN", "128",
+            "TPU.IMAGE_BUCKETS", "((128, 128),)", "TPU.MAX_GT_BOXES", "8",
+            "TPU.MASK_CANVAS", "28", "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", "2",
+            "SOLVER.CHECKPOINT_PERIOD", "2", "DATASETS.TEST", "()", "SEED", "3",
+            "DATASETS.ROOT", str(root), "OUTPUT_DIR", str(out)]
+    trainer = stage3_train.main(stage3_train.parse_args(
+        ["--config-file", yaml, "--device", "cpu", *opts]))
+    assert type(trainer.model.roi_heads).__name__ == "CascadeROIHeads" and trainer.model.training
+    lines = [json.loads(line) for line in open(out / "metrics.json")]
+    assert lines[-1]["iteration"] == 1
+    for r in lines:
+        assert all(np.isfinite(r[f"{k}_stage{s}"]) for s in range(3)
+                   for k in ("loss_cls", "loss_box_reg"))
+        assert np.isfinite(r["total_loss"]) and np.isfinite(r["loss_mask"])
+        assert all(f"diag_fg_frac_stage{s}" in r for s in range(3))
+    saved = load_state_dict(str(out / "model_0000002.pth"))
+    cfg = get_cfg()
+    cfg.merge_from_file(yaml)
+    cfg.merge_from_list(opts)
+    model = build_model(cfg, device="cpu")
+    assert not model.training
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in saved.items()}, strict=True)
+    key = "backbone.bottom_up.res3.0.conv2.bn1.running_var"
+    assert not np.allclose(saved[key], 1.0)  # the batch statistics trained

@@ -14,6 +14,17 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# Under pytest-xdist each worker process has its own torch thread pool, one
+# thread a core by default: six workers beside XLA's own pools oversubscribe
+# the cores many times over (a port CLI test took 6 s alone and 257 s in the
+# suite). Every worker imports this module when it collects the port's tests,
+# so each gets its share of the cores here, and at least two threads: torch's
+# single-threaded CPU convolutions sum in another order, which moves a
+# gradient of tests/test_torch_port_train_step.py past its bound.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(2, (os.cpu_count() or 1) // _WORKERS))
+
 GOLDEN_OVERRIDES = [
     "MODEL.MASK_ON", "True",
     "MODEL.RESNETS.DEPTH", "50",

@@ -43,6 +43,22 @@ CENTERMASK_NARROW = [
     "MODEL.FCOS.POST_NMS_TOPK_TRAIN", "16", "MODEL.PIXEL_STD", "(57.375, 57.12, 58.395)",
     "TPU.MAX_GT_BOXES", "8", "SOLVER.BASE_LR", "0.001", "SOLVER.WARMUP_ITERS", "0"]
 
+# the Cascade Mask R-CNN ResNeSt-PAFPN YAML trained as the JAX bench's s101
+# mode does (AF interpolator not frozen) at the widths of chip_smoke.py's
+# narrow_resnest_cfg (depth 50, res2 32, 8 a group, pyramid and heads at 32,
+# fc 64, 3 classes), one dense block, RPN 64 / 32 proposals, 16 anchors and 16
+# ROIs sampled an image; SyncBN everywhere, FREEZE_AT 2
+CASCADE_NARROW = [
+    "TPU.COMPUTE_DTYPE", "float32", "MODEL.AFI_FREEZE", "False",
+    "MODEL.RESNETS.DEPTH", "50", "MODEL.RESNETS.RES2_OUT_CHANNELS", "32",
+    "MODEL.RESNETS.WIDTH_PER_GROUP", "8", "MODEL.FPN.OUT_CHANNELS", "32",
+    "MODEL.AFI.N_RDB", "1", "MODEL.AFI.GROWTH_RATE", "8",
+    "MODEL.ROI_BOX_HEAD.CONV_DIM", "32", "MODEL.ROI_BOX_HEAD.FC_DIM", "64",
+    "MODEL.ROI_MASK_HEAD.CONV_DIM", "32", "MODEL.ROI_HEADS.NUM_CLASSES", "3",
+    "MODEL.RPN.PRE_NMS_TOPK_TRAIN", "64", "MODEL.RPN.POST_NMS_TOPK_TRAIN", "32",
+    "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "16", "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16",
+    "SOLVER.BASE_LR", "0.001", "SOLVER.WARMUP_ITERS", "0"]
+
 
 def fcos_stage2_batch(gt):
     """A collated dual-scale batch of two 256x512 images, their 2x2-mean
