@@ -4,9 +4,12 @@ parameters per ``BACKBONE.FREEZE_AT`` / ``MODEL.AFI_FREEZE``, and one train
 step: the losses, ``total_loss`` (the sum of every loss but the ``diag_``
 monitors), the backward (the ROI pooler's backward kernel on the card), an
 optimizer step and a schedule step. ``TPU.GRAD_ACCUM`` runs the batch as that
-many micro-batches and averages gradients and losses. No mesh (data
-parallelism waits: ROADMAP queue 1); ``TPU.REMAT`` and ``TPU.APPROX_TOPK``
-are not read.
+many micro-batches and averages gradients and losses. Two random streams
+feed the forward, as JAX's ``sampling`` and ``dropout`` keys: ``draws`` for
+the subsamples (``ops/sampling.py::draw``) and ``drop_path`` for a Swin's
+DropPath masks (``models/swin.py::drop_path_keep``), each consumed micro-batch
+after micro-batch. No mesh (data parallelism waits: ROADMAP queue 1);
+``TPU.REMAT`` and ``TPU.APPROX_TOPK`` are not read.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from ..models import build_model
 from ..models.roi_heads import GroundTruth
+from ..models.swin import drop_path_source
 from .solver import build_optimizer, clip_gradients, freeze, frozen_predicates
 
 
@@ -55,10 +59,12 @@ def _slice(inputs: Dict, lo: int, hi: int) -> Dict:
             "gt": GroundTruth(*(None if v is None else v[lo:hi] for v in gt))}
 
 
-def loss_and_grads(cfg, model, inputs: Dict, draws=None) -> Dict[str, torch.Tensor]:
+def loss_and_grads(cfg, model, inputs: Dict, draws=None, drop_path=None
+                   ) -> Dict[str, torch.Tensor]:
     """Forward and backward of one batch (over ``TPU.GRAD_ACCUM`` micro-batches,
     gradients and losses averaged); the gradients are left in ``.grad``.
-    Returns the detached losses with ``total_loss``."""
+    ``draws`` / ``drop_path``: the sources of the subsample keys and of the
+    DropPath masks. Returns the detached losses with ``total_loss``."""
     accum = max(1, int(cfg.TPU.GRAD_ACCUM))
     b = inputs["image"].shape[0]
     if b % accum:
@@ -66,7 +72,8 @@ def loss_and_grads(cfg, model, inputs: Dict, draws=None) -> Dict[str, torch.Tens
     sums: Dict[str, torch.Tensor] = {}
     for i in range(accum):
         mb = _slice(inputs, i * b // accum, (i + 1) * b // accum) if accum > 1 else inputs
-        losses = model(mb["image"], mb["image_sizes"], mb["gt"], draws=draws)
+        with drop_path_source(model, drop_path):
+            losses = model(mb["image"], mb["image_sizes"], mb["gt"], draws=draws)
         total = sum(v for k, v in losses.items() if not k.startswith("diag_"))
         (total / accum).backward()
         for k, v in {"total_loss": total, **losses}.items():
@@ -74,12 +81,13 @@ def loss_and_grads(cfg, model, inputs: Dict, draws=None) -> Dict[str, torch.Tens
     return sums
 
 
-def train_step(cfg, state: Stage3State, inputs: Dict, draws=None) -> Dict[str, float]:
+def train_step(cfg, state: Stage3State, inputs: Dict, draws=None, drop_path=None
+               ) -> Dict[str, float]:
     """One step: losses and gradients, clipping, optimizer and schedule step.
     Returns the metrics as floats (one device sync)."""
     model, opt = state.model, state.optimizer
     opt.zero_grad(set_to_none=True)
-    metrics = loss_and_grads(cfg, model, inputs, draws)
+    metrics = loss_and_grads(cfg, model, inputs, draws, drop_path)
     clip_gradients(cfg, (p for g in opt.param_groups for p in g["params"]))
     opt.step()
     state.scheduler.step()

@@ -283,8 +283,11 @@ class TargetDetectorTrainer(_Trainer):
         super().__init__(cfg, device)
         seed = self.seed
         self.state = init_stage3_state(cfg, self.device, torch.Generator().manual_seed(seed))
-        # the source of the RPN's and the ROI heads' subsample keys
+        # the sources of the RPN's and the ROI heads' subsample keys and of a
+        # Swin's DropPath masks (JAX's "sampling" and "dropout" streams);
+        # neither is saved with a checkpoint
         self.sampling = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.drop_path = torch.Generator(device=self.device).manual_seed(seed + 2)
         if cfg.MODEL.WEIGHTS:
             load_matching(self.model, load_state_dict(cfg.MODEL.WEIGHTS), cfg.MODEL.WEIGHTS)
         if cfg.MODEL.AF_EXTRACTOR_WEIGHTS:
@@ -309,6 +312,6 @@ class TargetDetectorTrainer(_Trainer):
 
         def step(batch):
             return train_step(self.cfg, self.state, batch_to_device(batch, self.device),
-                              self.sampling)
+                              self.sampling, self.drop_path)
 
         self._run("stage 3", start, self.state.schedule, step, dual_scale=False, evaluate=True)

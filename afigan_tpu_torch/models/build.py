@@ -13,10 +13,10 @@ same model returning its features too) with ``StandardROIHeads`` or
 ``CascadeROIHeads``, ``FCOS`` or ``CenterMask``; the guide of stages 1-2,
 ``RCNN_FPN_only`` over ``MODEL.GUIDE_BACKBONE.NAME`` (``build_guide_model``).
 In a training build (``train``) every BN and SyncBN trains
-(``layers.unfreeze_batch_norms``). Every other name raises ``NotImplementedError`` naming
-the ROADMAP item: queue 1 #6 for keypoints, ``Res5ROIHeads`` and
-``ProposalNetwork``, #7 for the deformable conv, #8 for training a Swin
-bottom-up.
+(``layers.unfreeze_batch_norms``) and a Swin takes its DropPath rates. Every
+other name raises ``NotImplementedError`` naming the ROADMAP item: queue 1 #6
+for keypoints, ``Res5ROIHeads`` and ``ProposalNetwork``, #7 for the
+deformable conv.
 """
 
 from __future__ import annotations
@@ -66,8 +66,10 @@ def pyramid_channels(cfg) -> int:
     return (cfg.MODEL.BIFPN if pyramid == "bifpn" else cfg.MODEL.FPN).OUT_CHANNELS
 
 
-def build_backbone(cfg, device=None, name: Optional[str] = None) -> nn.Module:
-    """``name`` (default ``MODEL.BACKBONE.NAME``) → bottom-up + pyramid."""
+def build_backbone(cfg, device=None, name: Optional[str] = None,
+                   train: bool = False) -> nn.Module:
+    """``name`` (default ``MODEL.BACKBONE.NAME``) → bottom-up + pyramid;
+    ``train``: a training build (a Swin's DropPath)."""
     name = name or cfg.MODEL.BACKBONE.NAME
     if name not in _BACKBONES:
         # every name of the JAX package's BACKBONE_REGISTRY is ported
@@ -76,7 +78,7 @@ def build_backbone(cfg, device=None, name: Optional[str] = None) -> nn.Module:
     afi = dict(afi_n_rdb=cfg.MODEL.AFI.N_RDB, afi_growth_rate=cfg.MODEL.AFI.GROWTH_RATE,
                afi_residual_scale=cfg.MODEL.AFI.RESIDUAL_SCALE)
     if bottom == "swin":
-        bottom_up = build_swin(cfg, device)
+        bottom_up = build_swin(cfg, device, train)
         chans = bottom_up.out_channels
     else:
         bottom_up = (build_resnest if bottom == "resnest" else build_resnet)(cfg, device)
@@ -143,22 +145,22 @@ def _fcos_kwargs(cfg, device) -> dict:
         pixel_std=tuple(cfg.MODEL.PIXEL_STD), dtype=compute_dtype(cfg), device=device)
 
 
-def build_fcos(cfg, device=None) -> FCOS:
-    return FCOS(build_backbone(cfg, device), **_fcos_kwargs(cfg, device))
+def build_fcos(cfg, device=None, train: bool = False) -> FCOS:
+    return FCOS(build_backbone(cfg, device, train=train), **_fcos_kwargs(cfg, device))
 
 
-def build_centermask(cfg, device=None) -> CenterMask:
+def build_centermask(cfg, device=None, train: bool = False) -> CenterMask:
     return CenterMask(
-        build_backbone(cfg, device),
+        build_backbone(cfg, device, train=train),
         mask_pooler_resolution=cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION,
         pooler_impl=cfg.TPU.POOLER_IMPL, max_fg=min(cfg.TPU.MAX_GT_BOXES, 64),
         **_fcos_kwargs(cfg, device))
 
 
-def _build_rcnn(cfg, device, return_features=False) -> GeneralizedRCNN:
+def _build_rcnn(cfg, device, return_features=False, train=False) -> GeneralizedRCNN:
     rpn = cfg.MODEL.RPN
     return GeneralizedRCNN(
-        build_backbone(cfg, device), build_roi_heads(cfg, device),
+        build_backbone(cfg, device, train=train), build_roi_heads(cfg, device),
         rpn_in_features=tuple(rpn.IN_FEATURES),
         rpn_strides=tuple(_STRIDES[f] for f in rpn.IN_FEATURES),
         anchor_sizes=tuple(tuple(s) for s in cfg.MODEL.ANCHOR_GENERATOR.SIZES),
@@ -198,21 +200,15 @@ def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None,
     With ``generator``, weights are drawn from it (the JAX package's init
     distributions); otherwise they are torch's defaults, to be replaced by
     ``load_state_dict``. ``train`` builds the training model (BN / SyncBN
-    that train, FCOS's ``_TRAIN`` thresholds) in training mode; a Swin
-    bottom-up does not train yet: the port's Swin has no DropPath
-    (``MODEL.SWINT.DROP_PATH_RATE``, which the JAX package trains with)."""
+    that train, FCOS's ``_TRAIN`` thresholds, a Swin's DropPath at
+    ``MODEL.SWINT.DROP_PATH_RATE``) in training mode."""
     device = check_device(device, "build_model")
     arch = cfg.MODEL.META_ARCHITECTURE
     rcnn = ("GeneralizedRCNN", "GeneralizedRCNN_AFExtractor")
-    if train and _BACKBONES.get(cfg.MODEL.BACKBONE.NAME, ("",))[0] == "swin":
-        raise NotImplementedError(
-            "training a Swin bottom-up is not ported yet: DropPath with its random keys "
-            "and the autograd routes of the attention and LayerNorm kernels (ROADMAP "
-            "queue 1 #8)")
     if arch in ("FCOS", "CenterMask"):
-        model = (build_fcos if arch == "FCOS" else build_centermask)(cfg, device)
+        model = (build_fcos if arch == "FCOS" else build_centermask)(cfg, device, train)
     elif arch in rcnn:
-        model = _build_rcnn(cfg, device, return_features=arch == rcnn[1])
+        model = _build_rcnn(cfg, device, return_features=arch == rcnn[1], train=train)
     else:
         raise NotImplementedError(f"META_ARCHITECTURE {arch!r} (ProposalNetwork) {_TODO}")
     if generator is not None:

@@ -104,6 +104,21 @@ CPU):
               passes the 0.05 threshold: it trains on the 12 GT boxes an image,
               appended); one step's pool and NMS launches held against their
               plain versions, and the pool's backward on one step's own ROIs
+ 10c. train_cascade  stage-3 training of Cascade Mask R-CNN ResNeSt-101-PAFPN
+              the same way (4 pool launches each way, 2 NMS a step)
+ 10d. train_swin  stage-3 training of Cascade R-CNN Swin-L-BiFPN(AFI) the same
+              way (the flagship YAML at full width with ``MODEL.AFI_FREEZE
+              False``: embed 192, depths 2-2-18-2, window 12, DropPath 0.2,
+              BiFPN 7 x 256 with SyncBN that trains, no masks; bf16, batch 2,
+              896x1408): 3 pool launches each way and 2 NMS a step and no
+              LayerNorm or attention kernel (the Swin trains through its
+              training route, torch ops under autograd) asserted; the timed
+              steps' DropPath masks (the trainer's stream) must drop some
+              branches and keep others; the device time of the training
+              route's attention and LayerNorm in the profiled step; then one
+              eval pass of the trained model under ``no_grad``: 24 attention
+              and 55 LayerNorm launches, every kernel call held against its
+              plain version
  11. stage1   stage-1 training (AFI-GAN) at full width
               (``configs/step1_afigan_training/...R_50_FPN_1x.yaml``: R-50-FPN
               guide, AF interpolator 256 channels with 3 dense blocks, the
@@ -141,10 +156,12 @@ CPU):
               narrow CenterMask under ``windowed``, the R-50-PAFPN model, a
               narrow ResNeSt-PAFPN cascade mask model, and TTA with masks on
               a narrow R-50 (merged detections and averaged masks)
- 14. train_card_vs_cpu  one stage-3 step of a narrow float32 R-50 and one of
-              a narrow CenterMask on the card and on the CPU with the same
-              weights, batch and subsample keys: losses, trainable gradients
-              and batch-norm statistics must agree
+ 14. train_card_vs_cpu  one stage-3 step of each of four narrow float32
+              models (R-50, CenterMask, the ResNeSt cascade's heads over a
+              ResNet-50, the Swin cascade with the same DropPath masks) on the
+              card and on the CPU with the same weights, batch and subsample
+              keys: losses, trainable gradients and batch-norm statistics must
+              agree
  15. stage12_card_vs_cpu  one step of stage 1 and one of stage 2 (the R-50
               and the FCOS step-2 YAMLs) at the CPU tests' narrow widths, the
               same way: metrics, gradients and the discriminator's (and the
@@ -2066,9 +2083,11 @@ def phase_tta(results):
 
 # the models' record_function ranges: their GPU spans (first to last kernel,
 # idle gaps included) are not device work
+# the record_function ranges of the Swin's training route (models/swin.py)
+SWIN_ROUTE_RANGES = ("swin_attention", "swin_layer_norm")
 RANGES = ("backbone", "afi_generator", "rpn", "roi_heads", "fcos_head", "fcos_decode",
           "fcos_losses", "mask_sample", "mask_pool", "mask_head", "guide", "generator",
-          "detector", "d_step", "g_step")
+          "detector", "d_step", "g_step", *SWIN_ROUTE_RANGES)
 # the ranges of a stage-1 and a stage-2 step (engine/stage{1,2}.py::step_tensors)
 STEP_RANGES = {"stage1": ("guide", "generator", "d_step", "g_step"),
                "stage2": ("guide", "detector", "d_step", "g_step"),
@@ -2238,6 +2257,15 @@ CENTERMASK_YAML = "inference/AFI-GAN_centermask_R_50_BiFPN.yaml"
 # and backward; the RPN's NMS an image (the cascade adds none in training)
 CASCADE_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, roi_pool=4, roi_pool_bwd=4)
 CASCADE_YAML = "inference/AFI-GAN_cascade_mask_rcnn_ResNeSt101_PAFPN.yaml"
+# Swin cascade (box only): the three box stages' pools (7x7), forward and
+# backward; the RPN's NMS an image (the cascade adds none in training); no
+# LayerNorm or attention kernel (the Swin's training route: torch ops under
+# autograd, as JAX trains through its XLA branches). The eval pass after the
+# steps launches the Swin's forward kernels: 55 LayerNorms (patch norm, two a
+# block, three merges, three outputs) and 24 attentions (one a block)
+SWIN_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, roi_pool=3, roi_pool_bwd=3)
+SWIN_EVAL_PASS = {"layer_norm": 55, "window_attention": 24}
+SWIN_YAML = "inference/AFI-GAN_cascade_rcnn_swint_BiFPN_ST.yaml"
 
 
 def train_records(gen, n_img=2, hw=(800, 1333), n_obj=12):
@@ -2304,6 +2332,129 @@ def cascade_train_cfg(out_dir):
     the AF interpolator trained (``MODEL.AFI_FREEZE False``), as the JAX
     bench's ``s101`` mode; otherwise ``train_cfg``'s."""
     return train_cfg(out_dir, CASCADE_YAML, "MODEL.AFI_FREEZE", "False")
+
+
+def swin_train_cfg(out_dir):
+    """The Cascade R-CNN Swin-L-BiFPN(AFI) YAML at full width (embed 192,
+    depths 2-2-18-2, heads 6-48, window 12, DropPath 0.2; BiFPN 7 x 256 with
+    SyncBN that trains; three 4-conv SyncBN box heads, no masks) with the AF
+    interpolator trained (``MODEL.AFI_FREEZE False``); otherwise
+    ``train_cfg``'s."""
+    return train_cfg(out_dir, SWIN_YAML, "MODEL.AFI_FREEZE", "False")
+
+
+class DropPathRecord:
+    """A DropPath source (``models/swin.py::drop_path_keep``) that draws from
+    ``gen`` and keeps every mask it hands out, on the card (no sync)."""
+
+    def __init__(self, gen):
+        self.gen, self.masks = gen, []
+
+    def __call__(self, shape, keep, device):
+        from afigan_tpu_torch.models.swin import drop_path_keep
+
+        mask = drop_path_keep(self.gen, shape, keep, device)
+        self.masks.append(mask)
+        return mask
+
+
+def route_device_ms(prof, names):
+    """The device time of the kernels that each record_function range of
+    ``names`` launched in a profiled train step, forward and backward: the
+    forward's by the host time of the launching operator inside the range,
+    the backward's by the autograd node that carries the sequence number of
+    one of the range's forward operators. {name: [forward ms, backward ms,
+    kernel launches]}."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = [(e.name, e.time_range.start, e.time_range.end, e.thread) for e in events
+             if e.name in names]
+    out = {n: [0.0, 0.0, 0] for n in names}
+    seq = {}
+    for e in events:
+        name = next((n for n, a, b, t in spans
+                     if t == e.thread and a <= e.time_range.start <= b), None)
+        if name is None:
+            continue
+        if e.sequence_nr >= 0:
+            seq[(e.thread, e.sequence_nr)] = name
+        out[name][0] += sum(k.duration for k in e.kernels) / 1000.0
+        out[name][2] += len(e.kernels)
+    for e in events:
+        if not e.kernels:
+            continue
+        node = e
+        while node is not None and not node.name.startswith(
+                "autograd::engine::evaluate_function"):
+            node = node.cpu_parent
+        name = node is not None and seq.get((node.fwd_thread, node.sequence_nr))
+        if name:
+            out[name][1] += sum(k.duration for k in e.kernels) / 1000.0
+            out[name][2] += len(e.kernels)
+    return out
+
+
+def swin_verify(path, model, before, steps):
+    """After the timed steps of ``train_swin``: each cascade stage's
+    foreground fraction above 0 at every step; every LayerNorm's scale and
+    bias and every relative-position bias table moved (the training route
+    trains them); every running statistic of the batch norms that train (the
+    BiFPN's, each box head's) moved; nothing frozen (``FREEZE_AT -1``)."""
+    import torch
+
+    for k in range(3):
+        fg = [m[f"diag_fg_frac_stage{k}"] for m in steps]
+        if not min(fg) > 0:
+            raise AssertionError(f"{path}: stage {k} foreground fraction by step {fg}")
+    after = model.state_dict()
+    params = dict(model.named_parameters())
+    if not all(p.requires_grad for p in params.values()):
+        raise AssertionError(f"{path}: frozen parameters under FREEZE_AT -1")
+    swin = [n for n in params if n.startswith("backbone.bottom_up.") and (
+        "norm" in n.split(".")[-2] or n.endswith("relative_position_bias_table"))]
+    still = [n for n in swin if torch.equal(after[n], before[n])]
+    groups = batch_norm_groups(model)
+    want = {"pyramid", *(f"roi_heads.box_head.{k}" for k in range(3))}
+    stuck = [f"{n}.{s_}" for names in groups.values() for n in names
+             for s_ in ("running_mean", "running_var")
+             if torch.equal(after[f"{n}.{s_}"], before[f"{n}.{s_}"])]
+    if still or set(groups) != want or stuck:
+        raise AssertionError(f"{path}: Swin norms or tables that did not move {still[:6]}, "
+                             f"batch norms that train in {sorted(groups)}, statistics that "
+                             f"did not move {stuck[:6]}")
+    log(f"  {path}: {len(swin)} Swin LayerNorm parameters and bias tables moved, the "
+        "running statistics of every batch norm moved: "
+        + ", ".join(f"{p} {len(n)}" for p, n in sorted(groups.items())))
+
+
+def swin_eval_pass(path, model, inputs, results):
+    """One pass of the trained model in eval mode under ``no_grad``: the
+    Swin's forward kernels (``SWIN_EVAL_PASS`` launches), each call held
+    against its plain version with every other kernel of the pass; finite
+    detections."""
+    import torch
+
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    model.eval()
+    try:
+        reset_launches()
+        with torch.no_grad(), HeldKernels("bfloat16") as held:
+            dets, masks = model(inputs["image"], inputs["image_sizes"])
+        counts = dict(LAUNCHES)
+    finally:
+        model.train()
+    check_outputs(dets, masks, 2, dets.boxes.shape[1], None)
+    for k, n in SWIN_EVAL_PASS.items():
+        if counts[k] != n or held.calls.get(k) != n:
+            raise AssertionError(f"{path} eval pass: {counts[k]} launches of {k}, "
+                                 f"{held.calls.get(k)} held, expected {n}")
+        results[k].setdefault("launches", {})[f"{path}_eval"] = n
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"  {path} eval pass (no_grad): launches {json.dumps(launched)}; held against their "
+        "plain versions: " + ", ".join(
+            f"{k} x{n_} max_abs_err {held.err[k]:.3e}" for k, n_ in held.calls.items()))
 
 
 def batch_norm_groups(model):
@@ -2385,17 +2536,20 @@ def spread_fcos_boxes(model):
         model.proposal_generator.fcos_head.bbox_pred.bias.fill_(CENTERMASK_BOX_STRIDES)
 
 
-def step_split(cfg, state, inputs, draws):
+def step_split(cfg, state, inputs, draws, drop_path=None):
     """One train step on the host clock with a synchronize after the
     forward, the backward and the optimizer: (forward, backward, optimizer)
     seconds."""
     import torch
 
+    from afigan_tpu_torch.models.swin import drop_path_source
+
     model, opt = state.model, state.optimizer
     opt.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses = model(inputs["image"], inputs["image_sizes"], inputs["gt"], draws=draws)
+    with drop_path_source(model, drop_path):
+        losses = model(inputs["image"], inputs["image_sizes"], inputs["gt"], draws=draws)
     total = sum(v for k, v in losses.items() if not k.startswith("diag_"))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2422,8 +2576,13 @@ def phase_train_cascade(results):
                 CASCADE_TRAIN_PER_STEP, (7, 7, 7, 14), verify=cascade_verify)
 
 
+def phase_train_swin(results):
+    train_phase(results, "train_swin", swin_train_cfg, SWIN_CANVAS, SWIN_TRAIN_PER_STEP,
+                (7, 7, 7), verify=swin_verify, after=swin_eval_pass)
+
+
 def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=None,
-                verify=None):
+                verify=None, after=None):
     """Stage-3 training at full width through ``TargetDetectorTrainer``: two
     iterations of ``train()`` over an in-memory dataset (mapper, loader,
     hooks, a checkpoint), then the main path: ``TRAIN_WARMUP`` + ``TRAIN_TIMED``
@@ -2435,9 +2594,14 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     backward on one step's own ROIs (``pool_sizes``: its calls' output
     sizes), whose calls phase ``train`` saves for ``kernel_sweep.py``. In the
     held step every NMS call has valid candidates and suppresses some, and
-    the ROI sampler takes proposals besides the appended GT. ``prepare``: a
-    change to the seeded model before the first step; ``verify(path, model,
-    state dict before the timed steps, their metrics)``: checks after them."""
+    the ROI sampler takes proposals besides the appended GT. A Swin's
+    DropPath masks come from the trainer's stream; those of the timed steps
+    must drop some branches and keep others; the profiled step gives the
+    device time of the Swin's training route (``route_device_ms``).
+    ``prepare``: a change to the seeded model before the first step;
+    ``verify(path, model, state dict before the timed steps, their
+    metrics)``: checks after them; ``after(path, model, inputs, results)``:
+    run last, on the trained model."""
     import json as _json
     import shutil
     import types
@@ -2451,6 +2615,7 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     from afigan_tpu_torch.data.loader import collate_batch, required_size_divisibility
     from afigan_tpu_torch.engine.stage3 import batch_to_device, train_step
     from afigan_tpu_torch.engine.trainers import TargetDetectorTrainer
+    from afigan_tpu_torch.models.swin import DropPath
     from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
     from afigan_tpu_torch.tools.kernel_sweep import (POOL_CALLS, capture_pool_backward,
@@ -2489,15 +2654,29 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     torch.cuda.reset_peak_memory_stats()
     before = ({k: v.clone() for k, v in trainer.model.state_dict().items()}
               if verify is not None else None)
+    drop = DropPathRecord(trainer.drop_path)
     reset_launches()
-    steps, ms, ev = timed_steps(lambda: train_step(cfg, trainer.state, inputs, trainer.sampling))
+    steps, ms, ev = timed_steps(
+        lambda: train_step(cfg, trainer.state, inputs, trainer.sampling, drop))
     counts = dict(LAUNCHES)
     n = len(steps)
     if verify is not None:
         verify(path, trainer.model, before, steps)
         del before
+
+    def step():
+        return train_step(cfg, trainer.state, inputs, trainer.sampling, trainer.drop_path)
+
+    if any(m.rate > 0 for m in trainer.model.modules() if isinstance(m, DropPath)):
+        draws = len(drop.masks) // n  # a step's DropPath calls, each one keep an image
+        kept = torch.cat([m.flatten() for m in drop.masks[TRAIN_WARMUP * draws:]])
+        log(f"  {path}: DropPath draws {draws} masks a step; in the timed steps "
+            f"{int(kept.sum())} of {kept.numel()} branches kept, {int((~kept).sum())} dropped")
+        if kept.all() or not kept.any():
+            raise AssertionError(f"{path}: the timed steps' DropPath masks kept "
+                                 f"{int(kept.sum())} of {kept.numel()} branches")
     with BoundCapture() as bounds:  # one more step: the bounds of its launches
-        train_step(cfg, trainer.state, inputs, trainer.sampling)
+        step()
     bounds.log(f"{path}, one step")
     log(f"  {path}: launches in {n} steps " + _json.dumps(counts))
     for k, per in per_step.items():
@@ -2518,12 +2697,12 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
         f"{np.median(ev):.1f} ms ({min(ev):.1f}-{max(ev):.1f}), "
         f"{canvas[0]}x{canvas[1]} canvas, bf16, lr {TRAIN_LR}, {n_gt} GT boxes; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for k in ("roi_pool", "roi_pool_bwd", "nms"):
+    for k in ("roi_pool", "roi_pool_bwd", "nms", "layer_norm", "window_attention"):
         results[k].setdefault("launches", {})[path] = counts[k] // n
     # one step with every pooler and NMS launch held against its plain
     # version on the launch's own inputs (the pool's backward: below)
     with HeldKernels("bfloat16") as held, SampledROIs(inputs["gt"].valid.shape[1]) as rois:
-        train_step(cfg, trainer.state, inputs, trainer.sampling)
+        step()
     want = {k: per_step[k] for k in ("roi_pool", "nms")}
     if held.calls != want:
         raise AssertionError(f"{path}: held {held.calls} launches, expected {want}")
@@ -2543,7 +2722,7 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            train_step(cfg, trainer.state, inputs, trainer.sampling)
+            step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = [e for e in prof.key_averages()
@@ -2556,6 +2735,12 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     busy = sum(e.self_device_time_total for e in kernels) / 1000.0
     log(f"  {path} profile: wall {1000 * wall:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / (1000 * wall):.1f} % of wall)")
+    route = route_device_ms(prof, SWIN_ROUTE_RANGES)
+    for name, (f_ms, b_ms, launched) in route.items():
+        if launched:
+            log(f"  {path} profile: training route {name}: forward {f_ms:.3f} ms, backward "
+                f"{b_ms:.3f} ms on the device in {launched} kernel launches "
+                f"({100 * (f_ms + b_ms) / max(busy, 1e-9):.1f} % of the busy time)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} {e.key[:90]}")
     for e in kernels:
@@ -2568,19 +2753,21 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     log(f"  {path} profile: the pool's backward {sum(bwd):.3f} ms on the device in "
         f"{len(bwd)} launches ({', '.join(f'{t:.3f}' for t in bwd)} ms; "
         f"{100 * sum(bwd) / max(busy, 1e-9):.1f} % of the busy time)")
-    fwd, bwd, opt = step_split(cfg, trainer.state, inputs, trainer.sampling)
+    fwd, bwd, opt = step_split(cfg, trainer.state, inputs, trainer.sampling,
+                               trainer.drop_path)
     tot = fwd + bwd + opt
     log(f"  {path} split (host clock, synchronized): forward {1000 * fwd:.1f} ms "
         f"({100 * fwd / tot:.1f} %), backward {1000 * bwd:.1f} ms ({100 * bwd / tot:.1f} %), "
         f"optimizer {1000 * opt:.1f} ms ({100 * opt / tot:.1f} %)")
     # the pool's backward on this step's own ROIs and gradients, saved for
     # ``kernel_sweep.py roi_pool_bwd``
-    calls = capture_pool_backward(
-        lambda: train_step(cfg, trainer.state, inputs, trainer.sampling))
+    calls = capture_pool_backward(step)
     if path == "train":
         save_pool_calls(calls, POOL_CALLS)
         log(f"  train: the step's {len(calls)} pool backward calls saved to {POOL_CALLS}")
-    del trainer, inputs
+    if after is not None:
+        after(path, trainer.model, inputs, results)
+    del trainer, inputs, step
     check_train_pool_backward(results, calls, path, pool_sizes)
     del calls
     torch.cuda.empty_cache()
@@ -2636,13 +2823,16 @@ def phase_train_card_vs_cpu(results):
     weights (FrozenBN calibrated on the batch), batch and fixed subsample keys
     on the card and on the CPU: the losses at 1e-4 relative, each trainable
     gradient at 1e-3 of its largest entry (or 1e-5 of the largest of all).
-    Three models: the R-50 stage-3 YAML (on the card the pool's forward and
+    Four models: the R-50 stage-3 YAML (on the card the pool's forward and
     backward kernels at 2 launches each, 2 NMS), the CenterMask
     R-50-BiFPN YAML on 128x256 images (its mask pool's forward and backward
-    at 32 channels, one launch each, and the FCOS decode's 2 NMS) and the
-    cascade of ``narrow_cascade_train_cfg`` (4 pool launches each way, 2 NMS);
-    the batch-norm statistics that train (the CenterMask's BiFPN, every norm
-    of the cascade) after the step at 1e-4 of each tensor's largest entry."""
+    at 32 channels, one launch each, and the FCOS decode's 2 NMS), the
+    cascade of ``narrow_cascade_train_cfg`` (4 pool launches each way, 2 NMS)
+    and the Swin cascade of ``narrow_swin_train_cfg`` on 128x128 images with
+    the same DropPath masks on both devices (3 pool launches each way, 2 NMS,
+    no LayerNorm or attention kernel: the training route); the batch-norm
+    statistics that train (the CenterMask's BiFPN, every norm of the
+    cascades) after the step at 1e-4 of each tensor's largest entry."""
     from afigan_tpu_torch.config import cfg_from_yaml
 
     cfg = cfg_from_yaml(STEP3_YAML)
@@ -2656,6 +2846,31 @@ def phase_train_card_vs_cpu(results):
     # every batch norm of the cascade trains: mean and variance each
     stage3_card_vs_cpu("cascade", narrow_cascade_train_cfg(), narrow_train_batch(64, 64, 4),
                        CASCADE_TRAIN_PER_STEP, None, small_residual_gamma)
+    stage3_card_vs_cpu("swin", narrow_swin_train_cfg(), narrow_train_batch(128, 128, 4),
+                       SWIN_TRAIN_PER_STEP, None, drop_path=FixedMasks)
+
+
+def narrow_swin_train_cfg():
+    """The Swin cascade YAML at ``narrow_swin_cfg``'s widths (embed 32, depths
+    2-2-2-2, window 4, BiFPN 2 x 32 with SyncBN, 4-conv box heads at 32, fc
+    64) with the narrow stage-3 proposals and ROIs, no masks, float32, the AF
+    interpolator trained, DropPath 0.2."""
+    cfg = narrow_swin_cfg()
+    cfg.merge_from_list(NARROW_STAGE3 + ["MODEL.MASK_ON", "False", "MODEL.AFI_FREEZE", "False"])
+    return cfg
+
+
+class FixedMasks:
+    """A DropPath source handing out the same masks on every device: numpy
+    draws from one seed in call order, kept with probability ``keep``."""
+
+    def __init__(self):
+        self.rs = np.random.RandomState(3)
+
+    def __call__(self, shape, keep, device):
+        import torch
+
+        return torch.from_numpy(self.rs.rand(*shape) < keep).to(device)
 
 
 def narrow_cascade_train_cfg():
@@ -2691,7 +2906,8 @@ def small_residual_gamma(model):
                 v.fill_(0.1)
 
 
-def stage3_card_vs_cpu(name, cfg, batch, per_step, n_stats, prepare=None):
+def stage3_card_vs_cpu(name, cfg, batch, per_step, n_stats, prepare=None, drop_path=None):
+    """``drop_path``: a class whose instance is each device's DropPath source."""
     import torch
 
     from afigan_tpu_torch.engine.stage3 import batch_to_device, init_stage3_state, loss_and_grads
@@ -2711,7 +2927,8 @@ def stage3_card_vs_cpu(name, cfg, batch, per_step, n_stats, prepare=None):
         else:
             state.model.load_state_dict(before)
         reset_launches()
-        losses = loss_and_grads(cfg, state.model, batch_to_device(batch, dev), fixed_draws)
+        losses = loss_and_grads(cfg, state.model, batch_to_device(batch, dev), fixed_draws,
+                                drop_path and drop_path())
         grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()
                  if p.grad is not None}
         out[dev] = ({k: float(v) for k, v in losses.items()}, grads,
@@ -3492,6 +3709,7 @@ def main():
                         ("nms_ab", phase_nms_ab), ("train", phase_train),
                         ("train_centermask", phase_train_centermask),
                         ("train_cascade", phase_train_cascade),
+                        ("train_swin", phase_train_swin),
                         ("stage1", phase_stage1), ("stage2", phase_stage2),
                         ("stage2_fcos", phase_stage2_fcos),
                         ("card_vs_cpu", phase_card_vs_cpu),

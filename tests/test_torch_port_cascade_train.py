@@ -61,8 +61,8 @@ output's, d the half difference of the two: a cancellation that rounding
 decides where the two images' pooled values are close; with the offset they
 are not.
 
-Also: the raises of a Swin bottom-up in a training build (both Swin cascade
-YAMLs) while both ResNeSt cascade YAMLs build, the weight decay of the
+Also: both Swin cascade YAMLs and both ResNeSt cascade YAMLs build for
+training (the Swin's DropPath rates, nothing frozen), the weight decay of the
 heads' batch norms, and FREEZE_AT on ResNeSt's names.
 """
 
@@ -605,13 +605,41 @@ RESNEST_YAMLS = ("AFI-GAN_cascade_mask_rcnn_ResNeSt101_FPN.yaml",
                  "AFI-GAN_cascade_mask_rcnn_ResNeSt101_PAFPN.yaml")
 
 
+# the Swin YAMLs' depths (2-2-18-2) and window (12) at narrow widths
+SWIN_NARROW_WIDTHS = ("MODEL.SWINT.EMBED_DIM", "24", "MODEL.SWINT.NUM_HEADS", "(1, 2, 4, 8)",
+                      "MODEL.BIFPN.OUT_CHANNELS", "32", "MODEL.BIFPN.FPN_REPEAT", "2",
+                      "MODEL.AFI.N_RDB", "1", "MODEL.AFI.GROWTH_RATE", "8",
+                      "MODEL.ROI_BOX_HEAD.CONV_DIM", "32", "MODEL.ROI_BOX_HEAD.FC_DIM", "64")
+
+
 @pytest.mark.parametrize("yaml", SWIN_YAMLS)
-def test_swin_training_raises(yaml):
+def test_swin_yamls_build_for_training(yaml):
+    """Both Swin cascade YAMLs (at narrow widths, their depths and window
+    kept) build for training: the model in training mode, its 24 blocks'
+    DropPath rates ``np.linspace(0, DROP_PATH_RATE, 24)`` (0.2), no parameter
+    frozen under ``FREEZE_AT -1`` with the AF interpolator trained; the
+    BiFPN's SyncBN counts as batch norm that trains; PreciseBN is off, so the
+    stage-3 trainer takes them."""
     from afigan_tpu_torch.config import cfg_from_yaml
+    from afigan_tpu_torch.engine.trainers import refuse_precise_bn
+    from afigan_tpu_torch.models.build import trains_batch_norm
+    from afigan_tpu_torch.models.swin import DropPath
 
     cfg = cfg_from_yaml(f"inference/{yaml}")
-    with pytest.raises(NotImplementedError, match="Swin.*queue 1 #8"):
-        build_model(cfg, device="cpu", train=True)
+    cfg.merge_from_list(list(SWIN_NARROW_WIDTHS) + ["MODEL.AFI_FREEZE", "False"])
+    assert cfg.MODEL.BACKBONE.FREEZE_AT == -1 and cfg.MODEL.SWINT.DROP_PATH_RATE == 0.2
+    # the BiFPN's SyncBN trains: the trainers' PreciseBN refusal reads it
+    assert trains_batch_norm(cfg) and cfg.MODEL.BIFPN.NORM == "SyncBN"
+    refuse_precise_bn(cfg)
+    model = stage3.init_stage3_state(cfg, device="cpu").model
+    assert model.training and all(m.training for m in model.modules())
+    blocks = [b for layer in model.backbone.bottom_up.layers for b in layer.blocks]
+    want = np.linspace(0, 0.2, 24)
+    assert len(blocks) == 24 and len([m for m in model.modules()
+                                      if isinstance(m, DropPath)]) == 48
+    np.testing.assert_array_equal([b.drop_path1.rate for b in blocks], want)
+    np.testing.assert_array_equal([b.drop_path2.rate for b in blocks], want)
+    assert all(p.requires_grad for p in model.parameters())
 
 
 @pytest.mark.parametrize("yaml", RESNEST_YAMLS)

@@ -25,7 +25,7 @@ Also: ``get_norm``'s BN made trainable (``BatchNorm2d.from_frozen``) against
 flax ``nn.BatchNorm`` (eps 1e-5 / momentum 0.9 and 1e-3 / 0.99; one value a
 channel included), BN and SyncBN train in ``build_model(train=True)`` and
 stay frozen in an eval build (FrozenBN in both), the weight-decay and learning-rate factors of every parameter equal
-to the JAX optax chain's by name, the raises (Swin cascade training, PreciseBN
+to the JAX optax chain's by name, the raises (a cascade with keypoints, PreciseBN
 with batch norm that trains, ``.msgpack`` weights), the canvas divisibility
 of every YAML against the JAX package's, and ``stage2_train`` on the FCOS
 step-2 YAML for two iterations on a tiny COCO with its half-scale evaluation.
@@ -334,14 +334,14 @@ def test_decay_masks_equal_jax_by_name():
 
 
 def test_cascade_training_raises():
-    """Cascade R-CNN trains since its losses were ported; a cascade over a
-    Swin bottom-up still raises in a training build (no DropPath)."""
-    from afigan_tpu_torch.config import swin_path_cfg
-
+    """Cascade R-CNN trains since its losses were ported (and over a Swin
+    bottom-up since its DropPath was); a cascade with keypoints still raises
+    in a training build (queue 1 #6)."""
     cfg = stage3_cfgs(("MODEL.ROI_HEADS.NAME", "CascadeROIHeads"))[1]
     assert build_model(cfg, device="cpu", train=True).training
-    with pytest.raises(NotImplementedError, match="Swin.*queue 1 #8"):
-        build_model(swin_path_cfg(), device="cpu", train=True)
+    cfg.MODEL.KEYPOINT_ON = True
+    with pytest.raises(NotImplementedError, match="queue 1 #6"):
+        build_model(cfg, device="cpu", train=True)
 
 
 def test_precise_bn_raises_with_batch_norm_that_trains(tmp_path, monkeypatch):

@@ -59,6 +59,25 @@ CASCADE_NARROW = [
     "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "16", "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16",
     "SOLVER.BASE_LR", "0.001", "SOLVER.WARMUP_ITERS", "0"]
 
+# the Swin-BiFPN(AF interpolator) cascade YAML trained with the AF
+# interpolator (MODEL.AFI_FREEZE False) at the JAX flagship test's tiny widths
+# (tests/test_swin_bifpn_flagship.py::_cfg: embed 24, heads 1-2-4-8, window 4,
+# BiFPN 2 x 32 with BN, one dense block, a 1-conv BN box head, no masks) with
+# depths 1-2-2-1, so that shifted blocks with masks run on maps wider than a
+# window; RPN 64 / 32 proposals, 16 anchors and 16 ROIs sampled an image
+SWIN_NARROW = [
+    "TPU.COMPUTE_DTYPE", "float32", "MODEL.AFI_FREEZE", "False",
+    "MODEL.SWINT.EMBED_DIM", "24", "MODEL.SWINT.DEPTHS", "(1, 2, 2, 1)",
+    "MODEL.SWINT.NUM_HEADS", "(1, 2, 4, 8)", "MODEL.SWINT.WINDOW_SIZE", "4",
+    "MODEL.BIFPN.OUT_CHANNELS", "32", "MODEL.BIFPN.FPN_REPEAT", "2", "MODEL.BIFPN.NORM", "BN",
+    "MODEL.AFI.IN_CHANNELS", "32", "MODEL.AFI.N_RDB", "1", "MODEL.AFI.GROWTH_RATE", "8",
+    "MODEL.ROI_BOX_HEAD.NUM_CONV", "1", "MODEL.ROI_BOX_HEAD.NORM", "BN",
+    "MODEL.ROI_MASK_HEAD.NORM", "BN", "MODEL.MASK_ON", "False",
+    "MODEL.RPN.PRE_NMS_TOPK_TRAIN", "64", "MODEL.RPN.PRE_NMS_TOPK_TEST", "64",
+    "MODEL.RPN.POST_NMS_TOPK_TRAIN", "32", "MODEL.RPN.POST_NMS_TOPK_TEST", "32",
+    "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "16", "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "16",
+    "TEST.DETECTIONS_PER_IMAGE", "8", "SOLVER.BASE_LR", "0.001", "SOLVER.WARMUP_ITERS", "0"]
+
 
 def fcos_stage2_batch(gt):
     """A collated dual-scale batch of two 256x512 images, their 2x2-mean
