@@ -51,5 +51,41 @@ def centermask_path_cfg() -> CfgNode:
     return cfg_from_yaml(CENTERMASK_YAML)
 
 
+# d2's COCO-Keypoints/Base-Keypoint-RCNN-FPN.yaml edits of an R-CNN FPN config:
+# the keypoint branch for the mask branch, one class, 17 keypoints through
+# 8 x 512 convs, box smooth-L1 beta 0.5, 1500 proposals in training
+KEYPOINT_EDITS = [
+    "MODEL.KEYPOINT_ON", "True", "MODEL.MASK_ON", "False",
+    "MODEL.ROI_HEADS.NUM_CLASSES", "1", "MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA", "0.5",
+    "MODEL.RPN.POST_NMS_TOPK_TRAIN", "1500", "MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS", "17",
+    "MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS", "(512, 512, 512, 512, 512, 512, 512, 512)"]
+# the JAX package's own C4 shape over an FPN pyramid (its test_rcnn_e2e.py):
+# the RPN and the Res5 heads on p4, d2's C4 anchors (one level, sizes 32-512),
+# a 14x14 pool
+RES5_EDITS = [
+    "MODEL.ROI_HEADS.NAME", "Res5ROIHeads", "MODEL.ROI_HEADS.IN_FEATURES", "('p4',)",
+    "MODEL.RPN.IN_FEATURES", "('p4',)",
+    "MODEL.ANCHOR_GENERATOR.SIZES", "((32, 64, 128, 256, 512),)",
+    "MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", "14"]
+
+
+def keypoint_path_cfg() -> CfgNode:
+    """Keypoint R-CNN R-50-FPN(AFI): the main path's YAML with
+    ``KEYPOINT_EDITS``."""
+    cfg = main_path_cfg()
+    cfg.merge_from_list(list(KEYPOINT_EDITS))
+    return cfg
+
+
+def res5_path_cfg() -> CfgNode:
+    """The Res5 (C4) ROI heads over the main path's FPN(AF interpolator)
+    pyramid: its YAML with ``RES5_EDITS`` (res5 2048/512 inside the head,
+    masks from its output)."""
+    cfg = main_path_cfg()
+    cfg.merge_from_list(list(RES5_EDITS))
+    return cfg
+
+
 __all__ = ["CfgNode", "get_cfg", "get_default_cfg", "cfg_from_yaml",
-           "main_path_cfg", "swin_path_cfg", "centermask_path_cfg"]
+           "main_path_cfg", "swin_path_cfg", "centermask_path_cfg", "keypoint_path_cfg",
+           "res5_path_cfg", "KEYPOINT_EDITS", "RES5_EDITS"]

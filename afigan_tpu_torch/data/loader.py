@@ -5,15 +5,19 @@ The eval mapper (read, resize shortest edge), the collate step (pad to a
 ``TPU.IMAGE_BUCKETS`` canvas rounded up to the model's size divisibility,
 stack; with the padded GT of training samples, and with ``dual_scale`` the x0.5
 stream on the half canvas) in numpy, equal to the JAX package's; d2's infinite shuffled ``TrainingSampler``,
-striped over ranks; and ``build_train_loader``, a plain iterator of collated
-training batches of the rank's share of ``SOLVER.IMS_PER_BATCH`` (no worker
-threads or prefetch: the train step's device time dwarfs the host's mapping
-at these batch sizes).
+striped over ranks; and ``build_train_loader``, a ``PrefetchingLoader`` of
+collated training batches of the rank's share of ``SOLVER.IMS_PER_BATCH``: a
+producer thread draws each record's random numbers in sampler order, a pool
+of ``DATALOADER.NUM_WORKERS`` threads maps the records (decode, resize, GT),
+and a queue keeps ``PREFETCH`` (2) batches ready ahead of the train step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Sequence, Tuple
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -120,12 +124,105 @@ class TrainingSampler:
             epoch += 1
 
 
+class PrefetchingLoader:
+    """Collated batches from a producer thread (JAX's ``PrefetchingLoader``):
+    it takes ``batch_size`` indices from ``sampler``, draws each record's
+    random numbers (``mapper.draw``) in that order, maps the records on a pool
+    of ``max(1, num_workers)`` threads (``mapper.map``), collates them and
+    puts the batch on a queue of ``PREFETCH`` batches. The draws stay in sampler
+    order, so the batches are those of the serial mapper for any pool size.
+
+    The producer starts at the first ``next`` (a loader that is never read,
+    as in a run of zero iterations, reads no record). A mapper or collate
+    failure is raised on the consumer's ``next`` as ``RuntimeError("data-loader
+    producer thread failed")`` from the cause; a sampler that ends ends the
+    iteration. ``close()`` stops the producer (joined) and the pool."""
+
+    PREFETCH = 2  # batches queued ahead of the consumer, as in JAX
+    _POLL_S = 0.1  # how often a producer blocked on a full queue looks at the stop flag
+
+    def __init__(self, records: Sequence[Dict], sampler: Iterator[int], mapper,
+                 batch_size: int, collate: Callable[[List[Dict]], Dict],
+                 num_workers: int = 4):
+        self.records = records
+        self.sampler = iter(sampler)
+        self.mapper = mapper
+        self.batch_size = batch_size
+        self.collate = collate
+        # NUM_WORKERS 0 is d2's serial convention; the map already runs off the
+        # training thread, so one pool thread is its equivalent
+        self.pool = ThreadPoolExecutor(max_workers=max(1, num_workers),
+                                       thread_name_prefix="loader-map")
+        self.q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH)
+        self._stop = threading.Event()
+        self._exc: BaseException | None = None
+        self._done = False
+        self.thread = threading.Thread(target=self._producer, name="loader-producer",
+                                       daemon=True)
+
+    def _put(self, item) -> bool:
+        """``item`` onto the queue unless the loader is closed meanwhile."""
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=self._POLL_S)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _producer(self) -> None:
+        try:
+            while not self._stop.is_set():
+                idxs = [next(self.sampler) for _ in range(self.batch_size)]
+                draws = [self.mapper.draw() for _ in idxs]
+                mapped = list(self.pool.map(
+                    lambda a: self.mapper.map(self.records[a[0]], a[1]), zip(idxs, draws)))
+                if not self._put(self.collate(mapped)):
+                    return
+        except StopIteration:
+            pass
+        except BaseException as e:  # surfaced on the consumer, never a clean stop
+            self._exc = e
+        self._put(None)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict:
+        if self._done:
+            raise StopIteration
+        if self.thread.ident is None:
+            self.thread.start()
+        batch = self.q.get()
+        if batch is None:
+            self._done = True
+            if self._exc is not None:
+                raise RuntimeError("data-loader producer thread failed") from self._exc
+            raise StopIteration
+        return batch
+
+    def close(self) -> None:
+        """Stop the producer and the pool; batches not taken are dropped."""
+        self._stop.set()
+        while self.thread.is_alive():
+            try:
+                self.q.get_nowait()
+            except queue.Empty:
+                pass
+            self.thread.join(timeout=self._POLL_S)
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        self._done = True
+
+
 def build_train_loader(cfg, dataset, seed: int = 0, dual_scale: bool = False,
-                       shard_id: int = 0, num_shards: int = 1) -> Iterator[Dict]:
+                       shard_id: int = 0, num_shards: int = 1) -> PrefetchingLoader:
     """Collated training batches of ``SOLVER.IMS_PER_BATCH // num_shards``
-    images from shard ``shard_id``'s stripe of the records, forever; with
-    ``dual_scale`` (stages 1-2) each with its x0.5 replay. Raises at once,
-    as JAX asserts, where ``num_shards`` does not divide the batch."""
+    images from shard ``shard_id``'s stripe of the records, forever, mapped on
+    ``DATALOADER.NUM_WORKERS`` threads; with ``dual_scale`` (stages 1-2) each
+    with its x0.5 replay; with ``MODEL.KEYPOINT_ON`` the keypoints, flipped
+    through the dataset's ``keypoint_hflip_indices``. Raises at once, as JAX
+    asserts, where ``num_shards`` does not divide the batch. The caller
+    closes it."""
     from .dataset_mapper import DatasetMapper
 
     if cfg.SOLVER.IMS_PER_BATCH % num_shards != 0:
@@ -134,18 +231,15 @@ def build_train_loader(cfg, dataset, seed: int = 0, dual_scale: bool = False,
     if cfg.DATALOADER.SAMPLER_TRAIN != "TrainingSampler":
         raise NotImplementedError(f"DATALOADER.SAMPLER_TRAIN {cfg.DATALOADER.SAMPLER_TRAIN!r} "
                                   "is not ported yet")
-    mapper = DatasetMapper(cfg, is_train=True, seed=seed, dual_scale=dual_scale)
+    mapper = DatasetMapper(cfg, is_train=True, seed=seed, dual_scale=dual_scale,
+                           keypoint_hflip_indices=getattr(dataset, "keypoint_hflip_indices",
+                                                          None))
     div = required_size_divisibility(cfg, dual_scale)
-    sampler = iter(TrainingSampler(len(dataset.records), seed, shard_id, num_shards))
-    per_shard = cfg.SOLVER.IMS_PER_BATCH // num_shards
-
-    def batches():
-        while True:
-            idxs = [next(sampler) for _ in range(per_shard)]
-            yield collate_batch([mapper(dataset.records[i]) for i in idxs],
-                                cfg.TPU.IMAGE_BUCKETS, div, dual_scale)
-
-    return batches()
+    sampler = TrainingSampler(len(dataset.records), seed, shard_id, num_shards)
+    return PrefetchingLoader(
+        dataset.records, sampler, mapper, cfg.SOLVER.IMS_PER_BATCH // num_shards,
+        lambda samples: collate_batch(samples, cfg.TPU.IMAGE_BUCKETS, div, dual_scale),
+        cfg.DATALOADER.NUM_WORKERS)
 
 
 def build_test_loader(cfg, dataset, batch_size: int = 1, records=None) -> Iterator[Dict]:

@@ -2,16 +2,19 @@
 ``afigan_tpu/data/transforms.py``: the test-time resize, and the stage-3
 training augmentation (ResizeShortestEdge over ``INPUT.MIN_SIZE_TRAIN`` by
 choice or range, ``MAX_SIZE_TRAIN`` cap, horizontal flip) as a resolved
-record applied to images, boxes and polygons, and replayed at another scale
-(``at_scale``: the x0.5 stream of stages 1-2 halves only the resize target,
-so both scales share the flip). Crop and colour jitter are not ported (the
-training mapper raises on them).
+record applied to images, boxes, polygons and keypoints, and replayed at
+another scale (``at_scale``: the x0.5 stream of stages 1-2 halves only the
+resize target, so both scales share the flip). The random part of the
+augmentation (``draw_train_transform``: the short side and the flip) is drawn
+apart from its resolution against an image's size (``resolve_train_transform``),
+so that a loader can draw in sampler order on one thread and map on others.
+Crop and colour jitter are not ported (the training mapper raises on them).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 
@@ -60,6 +63,30 @@ class ResolvedTransform:
         out[:, [1, 3]] *= self.new_h / self.orig_h
         return hflip_boxes(out, self.new_w) if self.hflip else out
 
+    def apply_keypoints(self, keypoints: np.ndarray, hflip_indices=None) -> np.ndarray:
+        """(N, K, 3) COCO keypoints [x, y, visibility] in original coords →
+        transformed coords (d2 ``transform_keypoint_annotations``): the
+        coordinates follow the resize and the flip; a flip swaps the left and
+        right identities through ``hflip_indices`` and raises without them;
+        keypoints that land outside the image get visibility 0, and invisible
+        ones are zeroed."""
+        kp = np.asarray(keypoints, np.float32).reshape(len(keypoints), -1, 3).copy()
+        if kp.size == 0:
+            return kp
+        kp[..., 0] *= self.new_w / self.orig_w
+        kp[..., 1] *= self.new_h / self.orig_h
+        if self.hflip:
+            kp[..., 0] = self.new_w - kp[..., 0]
+            if hflip_indices is None:
+                raise ValueError("Cannot flip keypoints without keypoint_hflip_indices "
+                                 "(the dataset's categories must list keypoint names)")
+            kp = kp[:, np.asarray(hflip_indices, np.int64)]
+        inside = ((kp[..., 0] >= 0) & (kp[..., 0] <= self.new_w)
+                  & (kp[..., 1] >= 0) & (kp[..., 1] <= self.new_h))
+        kp[..., 2] = np.where(inside, kp[..., 2], 0.0)
+        kp[kp[..., 2] == 0] = 0.0
+        return kp
+
     def apply_polygons(self, polygons):
         sx, sy = self.new_w / self.orig_w, self.new_h / self.orig_h
         out = []
@@ -94,17 +121,29 @@ def test_transform(h: int, w: int, min_size: int, max_size: int) -> ResolvedTran
     return ResolvedTransform(h, w, nh, nw)
 
 
-def sample_train_transform(rng: np.random.RandomState, h: int, w: int,
-                           min_sizes: Sequence[int], max_size: int,
-                           sampling: str = "choice", flip_prob: float = 0.5
-                           ) -> ResolvedTransform:
+class TrainDraw(NamedTuple):
+    """The random part of one training transform: the short side and the
+    flip."""
+
+    short: int
+    hflip: bool
+
+
+def draw_train_transform(rng: np.random.RandomState, min_sizes: Sequence[int],
+                         sampling: str = "choice", flip_prob: float = 0.5) -> TrainDraw:
     """The short side by choice (or uniformly in a range) from ``min_sizes``,
-    capped at ``max_size``, then a flip with ``flip_prob``: the JAX
-    package's draws in its order (without crop and colour jitter), so one
-    seed gives the same transforms."""
+    then a flip with ``flip_prob``: the JAX package's draws in its order
+    (without crop and colour jitter). No draw depends on the image."""
     if sampling == "choice":
         short = int(rng.choice(list(min_sizes)))
     else:
         short = int(rng.randint(min(min_sizes), max(min_sizes) + 1))
-    nh, nw = _shortest_edge_size(h, w, short, max_size)
-    return ResolvedTransform(h, w, nh, nw, bool(rng.rand() < flip_prob))
+    return TrainDraw(short, bool(rng.rand() < flip_prob))
+
+
+def resolve_train_transform(draw: TrainDraw, h: int, w: int, max_size: int
+                            ) -> ResolvedTransform:
+    """``draw`` on an ``h`` x ``w`` image, the short side capped by
+    ``max_size``: one seed's draws give the JAX package's transforms."""
+    nh, nw = _shortest_edge_size(h, w, draw.short, max_size)
+    return ResolvedTransform(h, w, nh, nw, draw.hflip)

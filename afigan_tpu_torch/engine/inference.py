@@ -1,8 +1,10 @@
 """Inference runner and host-side postprocessing (counterpart of
 ``afigan_tpu/engine/inference.py``): ``predict`` on one collated batch,
-``rescale_boxes``, ``paste_masks`` (torch bilinear, no cv2) and
-``run_inference`` feeding the port's numpy ``CocoEvaluator``; distributed,
-each rank infers its stripe of the records and the evaluator gathers."""
+``rescale_boxes``, ``rescale_keypoints``, ``paste_masks`` (torch bilinear,
+no cv2) and ``run_inference`` feeding the port's numpy ``CocoEvaluator``
+(bbox, segm with masks, keypoints with ``MODEL.KEYPOINT_ON`` under
+``TEST.KEYPOINT_OKS_SIGMAS``); distributed, each rank infers its stripe of
+the records and the evaluator gathers."""
 
 from __future__ import annotations
 
@@ -22,6 +24,15 @@ def rescale_boxes(boxes: np.ndarray, resized_hw, orig_hw) -> np.ndarray:
     out = boxes.copy()
     out[:, 0::2] = np.clip(out[:, 0::2] * sx, 0, orig_hw[1])
     out[:, 1::2] = np.clip(out[:, 1::2] * sy, 0, orig_hw[0])
+    return out
+
+
+def rescale_keypoints(keypoints: np.ndarray, resized_hw, orig_hw) -> np.ndarray:
+    """(D, K, 3) [x, y, score] on the resized canvas → original image coords
+    (unclipped, as in JAX)."""
+    out = keypoints.copy()
+    out[..., 0] *= orig_hw[1] / max(resized_hw[1], 1)
+    out[..., 1] *= orig_hw[0] / max(resized_hw[0], 1)
     return out
 
 
@@ -67,8 +78,10 @@ def run_inference(cfg, model, dataset, batch_size: int = 1) -> Dict[str, Dict[st
     from ..evaluation import CocoEvaluator
     from ..parallel import rank, world_size
 
-    tasks = ("bbox", "segm") if cfg.MODEL.MASK_ON else ("bbox",)
-    evaluator = CocoEvaluator(dataset, tasks=tasks)
+    tasks = ("bbox",) + (("segm",) if cfg.MODEL.MASK_ON else ()) + (
+        ("keypoints",) if cfg.MODEL.KEYPOINT_ON else ())
+    evaluator = CocoEvaluator(dataset, tasks=tasks,
+                              oks_sigmas=list(cfg.TEST.KEYPOINT_OKS_SIGMAS) or None)
     records = dataset.records[rank()::world_size()]
     for batch in build_test_loader(cfg, dataset, batch_size, records=records):
         dets, masks = predict(model, batch)
@@ -76,6 +89,7 @@ def run_inference(cfg, model, dataset, batch_size: int = 1) -> Dict[str, Dict[st
         scores = dets.scores.float().cpu().numpy()
         classes = dets.classes.cpu().numpy()
         valid = dets.valid.cpu().numpy()
+        kps = None if dets.keypoints is None else dets.keypoints.float().cpu().numpy()
         for i in range(boxes.shape[0]):
             if int(batch["image_id"][i]) < 0:  # final-batch padding
                 continue
@@ -84,9 +98,13 @@ def run_inference(cfg, model, dataset, batch_size: int = 1) -> Dict[str, Dict[st
             full = None
             if masks is not None:
                 full = [paste_masks(masks[i], img_boxes, valid[i], orig_h, orig_w)]
+            img_kps = None
+            if kps is not None:
+                img_kps = rescale_keypoints(kps[i], batch["image_sizes"][i],
+                                            (orig_h, orig_w))[None]
             evaluator.process([batch["image_id"][i]], img_boxes[None],
                               scores[i][None], classes[i][None], valid[i][None],
-                              masks=full)
+                              masks=full, keypoints=img_kps)
     results = evaluator.evaluate()
     for task, metrics in results.items():
         logger.info(f"{task}: " + "  ".join(f"{k}={v:.2f}" for k, v in metrics.items()))

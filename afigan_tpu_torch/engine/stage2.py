@@ -103,6 +103,9 @@ def init_stage2_state(cfg, device="cuda", generator: Optional[torch.Generator] =
     config, D and the frozen guide, and an optimizer (with its schedule) for
     the detector and one for D, on ``device``; weights from ``generator``."""
     device = check_device(device, "init_stage2_state")
+    if cfg.MODEL.KEYPOINT_ON:
+        raise NotImplementedError("stage 2 with MODEL.KEYPOINT_ON is not ported yet "
+                                  "(ROADMAP queue 1)")
     model = build_model(cfg, device=device, generator=generator, train=True)
     model.return_features = True
     freeze(model, frozen_predicates(cfg))

@@ -52,7 +52,8 @@ def batch_to_device(batch: Dict, device) -> Dict:
 
     g = batch["gt"]
     gt = GroundTruth(t(g["boxes"]), t(g["classes"]).long(), t(g["valid"]),
-                     t(g["masks"]) if "masks" in g else None)
+                     t(g["masks"]) if "masks" in g else None,
+                     t(g["keypoints"]) if "keypoints" in g else None)
     return {"image": t(batch["image"]), "image_sizes": t(batch["image_sizes"]), "gt": gt}
 
 

@@ -24,7 +24,8 @@ interpolator's keys of a stage-2 checkpoint (the reference's
 directory.
 
 Each ``train`` runs ``SOLVER.MAX_ITER`` steps over
-``data/loader.py::build_train_loader`` with the timer, learning-rate,
+``data/loader.py::build_train_loader`` (closed when ``train`` ends, by return
+or by exception; PreciseBN's loader too) with the timer, learning-rate,
 checkpoint (``SOLVER.CHECKPOINT_PERIOD``), evaluation (stages 2 and 3,
 ``TEST.EVAL_PERIOD``) and writer hooks; with ``TEST.PRECISE_BN.ENABLED`` and a
 period, stages 2 and 3 recompute the statistics of their batch norm that
@@ -191,7 +192,10 @@ class _Trainer:
             with drop_path_source(self.model, drop_path):
                 self.model(images, sizes, gt, draws=sampling)
 
-        n = update_bn_stats(self.model, forward, loader, num_iter)
+        try:
+            n = update_bn_stats(self.model, forward, loader, num_iter)
+        finally:
+            loader.close()
         logger.info("PreciseBN: %d batch norms from %d forwards", len(batch_norms(self.model)), n)
         return n
 
@@ -245,7 +249,10 @@ class _Trainer:
 
         logger.info("%s: iterations %d..%d on %s (rank %d of %d)", name, start,
                     cfg.SOLVER.MAX_ITER, self.device, rank(), world_size())
-        loop.run(run_step)
+        try:
+            loop.run(run_step)
+        finally:  # by return or by exception: no producer thread outlives train()
+            loader.close()
 
 
 class AFIGANTrainer(_Trainer):

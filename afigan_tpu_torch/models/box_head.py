@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -107,6 +107,7 @@ class Detections(NamedTuple):
     scores: torch.Tensor   # (D,)
     classes: torch.Tensor  # (D,) int
     valid: torch.Tensor    # (D,) bool
+    keypoints: Optional[torch.Tensor] = None  # (D, K, 3) [x, y, score]
 
 
 def fast_rcnn_inference_single(boxes, scores, image_size, proposal_valid,

@@ -10,13 +10,12 @@ nearest top-down), ``build_resnet_pafpn_sr_backbone`` /
 ``build_resnet_bifpn_sr_backbone`` / ``build_resnet_bifpn_backbone`` (ResNet +
 BiFPN), under ``GeneralizedRCNN`` (or ``GeneralizedRCNN_AFExtractor``, the
 same model returning its features too) with ``StandardROIHeads`` or
-``CascadeROIHeads``, ``FCOS`` or ``CenterMask``; the guide of stages 1-2,
+``CascadeROIHeads`` (with the keypoint branch under ``MODEL.KEYPOINT_ON``) or
+``Res5ROIHeads``, ``FCOS`` or ``CenterMask``; the guide of stages 1-2,
 ``RCNN_FPN_only`` over ``MODEL.GUIDE_BACKBONE.NAME`` (``build_guide_model``).
 In a training build (``train``) every BN and SyncBN trains
-(``layers.unfreeze_batch_norms``) and a Swin takes its DropPath rates. Every
-other name raises ``NotImplementedError`` naming the ROADMAP item: queue 1 #6
-for keypoints, ``Res5ROIHeads`` and ``ProposalNetwork``, #7 for the
-deformable conv.
+(``layers.unfreeze_batch_norms``) and a Swin takes its DropPath rates.
+``ProposalNetwork`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,12 +33,13 @@ from .fpn import FPN
 from .layers import unfreeze_batch_norms
 from .meta_arch import GeneralizedRCNN, RCNN_FPN_only
 from .pafpn import PAFPN
+from .res5_roi_heads import Res5ROIHeads
 from .resnest import build_resnest
 from .resnet import build_resnet
 from .roi_heads import StandardROIHeads
 from .swin import build_swin
 
-_TODO = "not ported yet (ROADMAP queue 1 #6)"
+_TODO = "not ported yet (ROADMAP queue 1)"
 _STRIDES = {"res2": 4, "res3": 8, "res4": 16, "res5": 32,
             "p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64, "p7": 128}
 
@@ -99,10 +99,27 @@ def build_backbone(cfg, device=None, name: Optional[str] = None,
                top_block_in_feature=cfg.MODEL.FPN.TOP_BLOCK_IN_FEATURE, **fpn)
 
 
-def build_roi_heads(cfg, device=None) -> StandardROIHeads:
+def build_roi_heads(cfg, device=None) -> nn.Module:
     rh, bh, mh = cfg.MODEL.ROI_HEADS, cfg.MODEL.ROI_BOX_HEAD, cfg.MODEL.ROI_MASK_HEAD
-    if rh.NAME not in ("StandardROIHeads", "CascadeROIHeads") or cfg.MODEL.KEYPOINT_ON:
-        raise NotImplementedError(f"ROI heads {rh.NAME!r} (Res5ROIHeads) / keypoints {_TODO}")
+    kh = cfg.MODEL.ROI_KEYPOINT_HEAD
+    if rh.NAME == "Res5ROIHeads":
+        if cfg.MODEL.KEYPOINT_ON:
+            raise ValueError("KEYPOINT_ON requires Standard/Cascade ROI heads "
+                             "(d2 keypoint models are FPN-based)")
+        r = cfg.MODEL.RESNETS
+        # the pool's stride is the head's default 16, as the JAX build leaves it
+        return Res5ROIHeads(
+            pyramid_channels(cfg), num_classes=rh.NUM_CLASSES, in_feature=rh.IN_FEATURES[0],
+            pooler_resolution=bh.POOLER_RESOLUTION, norm=r.NORM,
+            stride_in_1x1=r.STRIDE_IN_1X1, mask_on=cfg.MODEL.MASK_ON,
+            batch_size_per_image=rh.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=rh.POSITIVE_FRACTION, iou_threshold=rh.IOU_THRESHOLDS[0],
+            append_gt=rh.PROPOSAL_APPEND_GT, bbox_reg_weights=tuple(bh.BBOX_REG_WEIGHTS),
+            smooth_l1_beta=bh.SMOOTH_L1_BETA, score_thresh=rh.SCORE_THRESH_TEST,
+            nms_thresh=rh.NMS_THRESH_TEST, detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
+            device=device)
+    if rh.NAME not in ("StandardROIHeads", "CascadeROIHeads"):
+        raise KeyError(f"Unknown ROI heads: {rh.NAME}")
     common = dict(
         in_channels=pyramid_channels(cfg), num_classes=rh.NUM_CLASSES,
         in_features=tuple(rh.IN_FEATURES),
@@ -113,7 +130,13 @@ def build_roi_heads(cfg, device=None) -> StandardROIHeads:
         cls_agnostic_bbox_reg=bh.CLS_AGNOSTIC_BBOX_REG, mask_on=cfg.MODEL.MASK_ON,
         mask_pooler_resolution=mh.POOLER_RESOLUTION, mask_num_conv=mh.NUM_CONV,
         mask_conv_dim=mh.CONV_DIM, mask_norm=mh.NORM,
-        cls_agnostic_mask=mh.CLS_AGNOSTIC_MASK,
+        cls_agnostic_mask=mh.CLS_AGNOSTIC_MASK, keypoint_on=cfg.MODEL.KEYPOINT_ON,
+        keypoint_pooler_resolution=kh.POOLER_RESOLUTION,
+        keypoint_conv_dims=tuple(kh.CONV_DIMS), num_keypoints=kh.NUM_KEYPOINTS,
+        keypoint_loss_weight=kh.LOSS_WEIGHT,
+        keypoint_normalize_by_visible=kh.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS,
+        keypoint_sampling_ratio=max(kh.POOLER_SAMPLING_RATIO, 2),
+        keypoint_aligned=kh.POOLER_TYPE != "ROIAlign",
         score_thresh=rh.SCORE_THRESH_TEST, nms_thresh=rh.NMS_THRESH_TEST,
         detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
         sampling_ratio=max(bh.POOLER_SAMPLING_RATIO, 2),
@@ -231,7 +254,7 @@ def trains_batch_norm(cfg) -> bool:
     else:
         if cfg.MODEL.ROI_BOX_HEAD.NUM_CONV:
             norms.append(cfg.MODEL.ROI_BOX_HEAD.NORM)
-        if cfg.MODEL.MASK_ON:
+        if cfg.MODEL.MASK_ON and cfg.MODEL.ROI_HEADS.NAME != "Res5ROIHeads":
             norms.append(cfg.MODEL.ROI_MASK_HEAD.NORM)
     return any(n in ("BN", "SyncBN") for n in norms)
 

@@ -60,7 +60,7 @@ class CascadeROIHeads(StandardROIHeads):
     def losses(self, features, proposals, image_sizes, gt: GroundTruth,
                draws=None) -> Dict[str, torch.Tensor]:
         """{loss_cls_stage{k}, loss_box_reg_stage{k}, diag_fg_frac_stage{k}
-        for each stage[, loss_mask]}. ``draws``: the stage-0 subsample's key
+        for each stage[, loss_mask][, loss_keypoint]}. ``draws``: the stage-0 subsample's key
         source (``ops/sampling.py::draw``)."""
         sampled = sample_proposals(
             proposals.proposals.detach(), proposals.valid, gt, self.batch_size_per_image,
@@ -89,8 +89,7 @@ class CascadeROIHeads(StandardROIHeads):
             if stage < self.num_stages - 1:
                 boxes = _clip_each(box2box.apply_deltas(
                     deltas.detach().float().reshape(b, s, 4), boxes), image_sizes)
-        if self.mask_on:
-            losses["loss_mask"] = self._mask_branch_train(features, sampled, gt)
+        losses.update(self._mask_and_keypoint_losses(features, sampled, gt))
         return losses
 
     def forward(self, features, proposals, image_sizes, given_dets=None):
@@ -114,5 +113,4 @@ class CascadeROIHeads(StandardROIHeads):
             for i in range(b)]
         dets = Detections(*(torch.stack([getattr(d, f) for d in per_image])
                             for f in ("boxes", "scores", "classes", "valid")))
-        masks = self._mask_branch(features, dets) if self.mask_on else None
-        return dets, masks
+        return self._mask_and_keypoint_branches(features, dets)

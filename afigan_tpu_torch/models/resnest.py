@@ -196,7 +196,7 @@ def build_resnest(cfg, device=None) -> ResNeSt:
     if any(r.DEFORM_ON_PER_STAGE):
         raise NotImplementedError(
             "MODEL.RESNETS.DEFORM_ON_PER_STAGE: the deformable conv is not ported yet "
-            "(ROADMAP queue 1 #7, ops/deform_conv.py)")
+            "(ROADMAP queue 1 #5, ops/deform_conv.py)")
     radix = r.RADIX
     return ResNeSt(
         depth=r.DEPTH, norm=r.NORM, radix=radix, bottleneck_width=r.BOTTLENECK_WIDTH,

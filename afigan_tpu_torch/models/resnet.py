@@ -67,7 +67,7 @@ class ResNet(nn.Module):
         if depth not in RESNET_STAGES or num_groups != 1:
             raise NotImplementedError(
                 f"ResNet depth {depth} / {num_groups} groups: only depths "
-                f"{sorted(RESNET_STAGES)} with one group are ported (ROADMAP queue 1 #7)")
+                f"{sorted(RESNET_STAGES)} with one group are ported (ROADMAP queue 1 #5)")
         self.out_features = tuple(out_features)
         self.stem = BasicStem(3, stem_out_channels, norm, device)
         in_ch = stem_out_channels

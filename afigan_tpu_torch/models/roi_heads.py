@@ -9,7 +9,13 @@ Training (``losses``): proposals matched to the padded GT (Matcher 0.5) and
 subsampled to ``batch_size_per_image`` per image at ``positive_fraction``
 (the GT boxes appended first), the box losses over the sampled ROIs, and the
 mask loss over a fixed capacity of foreground ROIs. Everything has a fixed
-shape, as in JAX; the proposals are detached (``stop_gradient`` there)."""
+shape, as in JAX; the proposals are detached (``stop_gradient`` there).
+
+With ``keypoint_on`` (``MODEL.KEYPOINT_ON``) the keypoint branch
+(``models/keypoint_head.py``) pools with its own sampling ratio and
+alignment: in training over the same foreground capacity as the mask branch
+(``loss_keypoint``), at inference on the detected boxes (the detections'
+``keypoints``, (B, D, K, 3)). Test-time augmentation runs no keypoint branch."""
 
 from __future__ import annotations
 
@@ -24,18 +30,22 @@ from ..ops.roi_align import POOLER_IMPLS, pool_rois
 from ..ops.sampling import subsample_labels
 from .box_head import (Detections, FastRCNNConvFCHead, FastRCNNOutputLayers,
                        fast_rcnn_inference_single, fast_rcnn_losses)
+from .keypoint_head import (KRCNNConvDeconvUpsampleHead, heatmaps_to_keypoints,
+                            keypoint_rcnn_loss)
 from .mask_head import MaskRCNNConvUpsampleHead, crop_and_resize_masks, mask_loss
 from .rpn import RPNOutput
 
 
 class GroundTruth(NamedTuple):
     """Padded per-image GT: boxes (B, M, 4) xyxy, classes (B, M) in [0, C),
-    valid (B, M) bool, masks (B, M, MH, MW) float canvases or None."""
+    valid (B, M) bool, masks (B, M, MH, MW) float canvases or None,
+    keypoints (B, M, K, 3) [x, y, visibility] or None."""
 
     boxes: torch.Tensor
     classes: torch.Tensor
     valid: torch.Tensor
     masks: Optional[torch.Tensor] = None
+    keypoints: Optional[torch.Tensor] = None
 
 
 class SampledProposals(NamedTuple):
@@ -87,7 +97,12 @@ class StandardROIHeads(nn.Module):
                  cls_agnostic_bbox_reg: bool = False, mask_on: bool = False,
                  mask_pooler_resolution: int = 14, mask_num_conv: int = 4,
                  mask_conv_dim: int = 256, mask_norm: str = "",
-                 cls_agnostic_mask: bool = False,
+                 cls_agnostic_mask: bool = False, keypoint_on: bool = False,
+                 keypoint_pooler_resolution: int = 14,
+                 keypoint_conv_dims: Sequence[int] = (512,) * 8, num_keypoints: int = 17,
+                 keypoint_loss_weight: float = 1.0,
+                 keypoint_normalize_by_visible: bool = True,
+                 keypoint_sampling_ratio: int = 2, keypoint_aligned: bool = True,
                  score_thresh: float = 0.05, nms_thresh: float = 0.5,
                  detections_per_image: int = 100, sampling_ratio: int = 2,
                  aligned: bool = True, pooler_impl: str = "pallas",
@@ -125,6 +140,16 @@ class StandardROIHeads(nn.Module):
             self.mask_head = MaskRCNNConvUpsampleHead(
                 in_channels, num_classes, mask_num_conv, mask_conv_dim,
                 cls_agnostic_mask, mask_norm, device)
+        self.keypoint_on = keypoint_on
+        self.keypoint_res = keypoint_pooler_resolution
+        self.num_keypoints = num_keypoints
+        self.keypoint_loss_weight = keypoint_loss_weight
+        self.keypoint_normalize_by_visible = keypoint_normalize_by_visible
+        self.keypoint_sampling_ratio = keypoint_sampling_ratio
+        self.keypoint_aligned = keypoint_aligned
+        if keypoint_on:
+            self.keypoint_head = KRCNNConvDeconvUpsampleHead(
+                in_channels, num_keypoints, tuple(keypoint_conv_dims), device)
 
     def _build_box_heads(self, make_head, make_predictor) -> None:
         self.box_head = make_head()
@@ -136,21 +161,26 @@ class StandardROIHeads(nn.Module):
                 m.init_weights(gen)
         if self.mask_on:
             self.mask_head.init_weights(gen)
+        if self.keypoint_on:
+            self.keypoint_head.init_weights(gen)
 
-    def _pool(self, features, boxes, resolution):
+    def _pool(self, features, boxes, resolution, sampling_ratio=None, aligned=None):
         """features dict of (B,H,W,C); boxes (B,R,4) → (B*R, P, P, C) in
-        the features' dtype (the heads' compute dtype)."""
+        the features' dtype (the heads' compute dtype). ``sampling_ratio`` /
+        ``aligned``: a branch's own (default the box branch's)."""
         feats = [features[f] for f in self.in_features]
         pooled = pool_rois(self.pooler_impl, feats, boxes, self.strides, resolution,
-                           self.sampling_ratio, self.aligned)
+                           self.sampling_ratio if sampling_ratio is None else sampling_ratio,
+                           self.aligned if aligned is None else aligned)
         return pooled.reshape(-1, *pooled.shape[2:]).to(feats[0].dtype)
 
     def forward(self, features: Dict[str, torch.Tensor], proposals: Optional[RPNOutput],
                 image_sizes, given_dets: Optional[Detections] = None
                 ) -> Tuple[Detections, Optional[torch.Tensor]]:
-        """→ (Detections of (B, D, ...) tensors, masks (B, D, S, S) or None).
-        With ``given_dets`` (test-time augmentation) only the mask branch runs,
-        on those boxes, and they come back as they were given."""
+        """→ (Detections of (B, D, ...) tensors, with keypoints (B, D, K, 3)
+        under ``keypoint_on``; masks (B, D, S, S) or None). With
+        ``given_dets`` (test-time augmentation) only the mask branch runs, on
+        those boxes, and they come back as they were given."""
         if given_dets is not None:
             return given_dets, self._mask_branch(features, given_dets) if self.mask_on else None
         b, k = proposals.scores.shape
@@ -167,8 +197,22 @@ class StandardROIHeads(nn.Module):
             for i in range(b)]
         dets = Detections(*(torch.stack([getattr(d, f) for d in per_image])
                             for f in ("boxes", "scores", "classes", "valid")))
+        return self._mask_and_keypoint_branches(features, dets)
+
+    def _mask_and_keypoint_branches(self, features, dets: Detections):
+        """The mask and keypoint branches on the detections: (dets with their
+        keypoints under ``keypoint_on``, masks or None)."""
         masks = self._mask_branch(features, dets) if self.mask_on else None
+        if self.keypoint_on:
+            dets = dets._replace(keypoints=self._keypoint_branch_infer(features, dets))
         return dets, masks
+
+    def _keypoint_branch_infer(self, features, dets: Detections):
+        b, d = dets.scores.shape
+        flat = self._pool(features, dets.boxes, self.keypoint_res,
+                          self.keypoint_sampling_ratio, self.keypoint_aligned)
+        kp = heatmaps_to_keypoints(self.keypoint_head(flat), dets.boxes.reshape(b * d, 4))
+        return kp.reshape(b, d, self.num_keypoints, 3)
 
     def _mask_branch(self, features, dets: Detections):
         b, d = dets.scores.shape
@@ -190,7 +234,7 @@ class StandardROIHeads(nn.Module):
 
     def losses(self, features: Dict[str, torch.Tensor], proposals: RPNOutput,
                image_sizes, gt: GroundTruth, draws=None) -> Dict[str, torch.Tensor]:
-        """{loss_cls, loss_box_reg[, loss_mask], diag_fg_frac}: the last a
+        """{loss_cls, loss_box_reg[, loss_mask][, loss_keypoint], diag_fg_frac}: the last a
         monitor (the sampled foreground fraction), left out of the total.
         ``image_sizes`` is not read here (a cascade clips its stages' boxes to
         them). ``draws``: the subsample's key source (``ops/sampling.py::draw``)."""
@@ -204,8 +248,7 @@ class StandardROIHeads(nn.Module):
         losses = fast_rcnn_losses(logits, deltas, sampled.gt_classes.reshape(-1),
                                   gt_deltas.reshape(-1, 4), sampled.valid.reshape(-1),
                                   self.num_classes, self.smooth_l1_beta)
-        if self.mask_on:
-            losses["loss_mask"] = self._mask_branch_train(features, sampled, gt)
+        losses.update(self._mask_and_keypoint_losses(features, sampled, gt))
         fg = (sampled.gt_classes < self.num_classes) & sampled.valid
         losses["diag_fg_frac"] = fg.float().mean()
         return losses
@@ -228,3 +271,32 @@ class StandardROIHeads(nn.Module):
         targets = crop_and_resize_masks(gt.masks, gt.boxes, fg_boxes, fg_gt_idx, size)
         return mask_loss(logits, targets.reshape(b * max_fg, size, size),
                          fg_classes.reshape(-1), fg_valid.reshape(-1), self.num_classes)
+
+    def _mask_and_keypoint_losses(self, features, sampled: SampledProposals, gt: GroundTruth
+                      ) -> Dict[str, torch.Tensor]:
+        """{loss_mask} and {loss_keypoint} of the branches that are on."""
+        losses = {}
+        if self.mask_on:
+            losses["loss_mask"] = self._mask_branch_train(features, sampled, gt)
+        if self.keypoint_on:
+            losses["loss_keypoint"] = self._keypoint_branch_train(features, sampled, gt)
+        return losses
+
+    def _keypoint_branch_train(self, features, sampled: SampledProposals, gt: GroundTruth):
+        """The foreground keypoint branch (d2 ``keypoint_rcnn_loss``); d2's
+        ``select_proposals_with_visible_keypoints`` is folded into the loss's
+        visibility mask, as in JAX."""
+        if gt.keypoints is None:
+            raise ValueError("MODEL.KEYPOINT_ON needs the ground truth's keypoints")
+        b = sampled.gt_classes.shape[0]
+        max_fg, fg_boxes, _, fg_gt_idx, fg_valid = self._select_fg(sampled)
+        logits = self.keypoint_head(self._pool(features, fg_boxes, self.keypoint_res,
+                                               self.keypoint_sampling_ratio,
+                                               self.keypoint_aligned))
+        gt_kp = _take(gt.keypoints.float(), fg_gt_idx)
+        # d2's flag-off constant: num_images * batch_size_per_image *
+        # positive_fraction (= b * max_fg)
+        return keypoint_rcnn_loss(logits, gt_kp.reshape(b * max_fg, self.num_keypoints, 3),
+                                  fg_boxes.reshape(b * max_fg, 4), fg_valid.reshape(-1),
+                                  self.keypoint_normalize_by_visible,
+                                  self.keypoint_loss_weight, normalizer=float(b * max_fg))

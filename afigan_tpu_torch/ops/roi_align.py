@@ -7,20 +7,29 @@ All take per-level (B, H_l, W_l, C) maps and (B, R, 4) boxes and return
 (B, R, P, P, C) float32. Routing, window geometry and the interpolation
 products are plain torch (XLA code outside the kernels in JAX).
 
-``pool_rois`` is the ``TPU.POOLER_IMPL`` dispatch of every head (training
-takes ``pallas`` or ``gather``: the windowed form's copy kernel is
-forward-only and raises under autograd):
+``pool_rois`` is the ``TPU.POOLER_IMPL`` dispatch of every head:
 
 =========  ==============================================================
 pallas     ``multilevel_roi_align_pallas``: ``ops/kernels/roi_pool.py``
-           (``csrc/roi_pool.cu`` on the card), exact for every ROI, any C
-fast,      ``multilevel_roi_align_windowed``: one window per ROI out of the
-windowed   row-concatenated pyramid (``ops/kernels/window_gather.py``,
+           (``csrc/roi_pool.cu`` on the card, forward and backward), exact
+           for every ROI, any C
+windowed   ``multilevel_roi_align_windowed``: one window per ROI out of the
+           row-concatenated pyramid (``ops/kernels/window_gather.py``,
            ``csrc/window_gather.cu`` on the card) and two interpolation
            products; at most ``overflow_slots`` ROIs per image whose samples
            leave the window are recomputed exactly
+fast       ``multilevel_roi_align_fast``: the windowed forward; under
+           autograd the backward of JAX's custom VJP, the exact point
+           scatter of every sample (``_pooler_scatter_bwd``)
 gather     ``multilevel_roi_align``: the plain per-point gather
 =========  ==============================================================
+
+``fast`` has a training route, picked by mode (grad enabled and a level that
+requires grad), never by a failure: ``WindowedPool``, whose forward is the
+windowed one (run with grad off, so its copy kernel launches on the card) and
+whose backward is the exact pool's, ``roi_pool_backward`` (``csrc/roi_pool.cu``
+on the card). ``windowed`` under autograd differentiates its products (JAX's
+``windowed``) on CPU tensors; on the card its copy kernel refuses autograd.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ from typing import Sequence
 
 import torch
 
-from .kernels.roi_pool import RoIPool, roi_pool, roi_pool_plain
+from .kernels import roi_pool as pool_kernel
+from .kernels.roi_pool import RoIPool, roi_pool_plain
 from .kernels.window_gather import gather_windows
 
 POOLER_IMPLS = ("pallas", "fast", "windowed", "gather")
@@ -197,12 +207,48 @@ def multilevel_roi_align_windowed(features: Sequence[torch.Tensor], boxes,
         sel = torch.sort(overflow.to(torch.int32), dim=1, descending=True,
                          stable=True).indices[:, :k]
         sel_boxes = torch.gather(boxes, 1, sel[:, :, None].expand(b, k, 4))
-        corrected = roi_pool(feats, sel_boxes, torch.gather(levels, 1, sel), strides,
-                             p, s, aligned)
+        # through the module, as the pallas route's RoIPool calls it
+        corrected = pool_kernel.roi_pool(feats, sel_boxes, torch.gather(levels, 1, sel),
+                                         strides, p, s, aligned)
         rows = torch.arange(b, device=dev)[:, None]
         take = torch.gather(overflow, 1, sel)[:, :, None, None, None]
         out[rows, sel] = torch.where(take, corrected, out[rows, sel])
     return (out, overflow) if return_overflow else out
+
+
+class WindowedPool(torch.autograd.Function):
+    """The ``fast`` pooler under autograd (JAX's ``_fast_fwd`` / ``_fast_bwd``):
+    the windowed forward (autograd runs it with grad off, so the copy and the
+    overflow pool launch their kernels on the card); the backward the exact
+    pool's adjoint, ``roi_pool_backward`` (the kernel on the card, the plain
+    scatter on the CPU). The boxes get no gradient."""
+
+    @staticmethod
+    def forward(ctx, boxes, strides, output_size, sampling_ratio, aligned, *features):
+        ctx.save_for_backward(boxes, *features)
+        ctx.args = (tuple(strides), output_size, sampling_ratio, aligned)
+        return multilevel_roi_align_windowed(features, boxes, strides, output_size,
+                                             sampling_ratio, aligned)
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, *features = ctx.saved_tensors
+        strides = ctx.args[0]
+        boxes, levels = _route(features, boxes, strides)
+        grads = pool_kernel.roi_pool_backward(features, boxes, levels, grad.float(), *ctx.args)
+        return (None,) * 5 + tuple(grads)
+
+
+def multilevel_roi_align_fast(features: Sequence[torch.Tensor], boxes,
+                              strides: Sequence[int], output_size: int,
+                              sampling_ratio: int = 2, aligned: bool = True):
+    """The counterpart of JAX's ``multilevel_roi_align_fast``: the windowed
+    forward, and on the training route ``WindowedPool``'s scatter backward."""
+    if torch.is_grad_enabled() and any(f.requires_grad for f in features):
+        return WindowedPool.apply(boxes.detach(), tuple(strides), output_size,
+                                  sampling_ratio, aligned, *features)
+    return multilevel_roi_align_windowed(features, boxes, strides, output_size,
+                                         sampling_ratio, aligned)
 
 
 def pool_rois(impl: str, features: Sequence[torch.Tensor], boxes,
@@ -213,7 +259,9 @@ def pool_rois(impl: str, features: Sequence[torch.Tensor], boxes,
     ``fast`` and ``windowed`` are one function at inference."""
     if impl == "pallas":
         fn = multilevel_roi_align_pallas
-    elif impl in ("fast", "windowed"):
+    elif impl == "fast":
+        fn = multilevel_roi_align_fast
+    elif impl == "windowed":
         fn = multilevel_roi_align_windowed
     elif impl == "gather":
         fn = multilevel_roi_align

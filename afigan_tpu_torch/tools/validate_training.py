@@ -21,8 +21,9 @@ weights on from stage to stage through the files the trainers write (stage
 ``--family`` picks the model: ``r50`` (Mask R-CNN R-50-FPN, stages 1-3),
 ``s101`` (Cascade Mask R-CNN ResNeSt-101-PAFPN, stage 3), ``fcos_bifpn``
 (FCOS R-50-BiFPN, stage 2), ``swin`` (Cascade R-CNN Swin-T-BiFPN, stage 3),
-``centermask`` (CenterMask R-50-BiFPN, stage 3); ``keypoint`` raises, the port
-has no keypoint head. It writes ``<out>/summary.json`` (the curves, the
+``centermask`` (CenterMask R-50-BiFPN, stage 3), ``keypoint`` (Keypoint R-CNN
+R-50-FPN: the R-50 Mask R-CNN YAML with the keypoint branch for the mask
+branch, 3 keypoints an object, stage 3). It writes ``<out>/summary.json`` (the curves, the
 verdicts, and each stage's median seconds an iteration and peak device
 memory) and exits non-zero if a check fails. The default device is the GPU;
 ``--device cpu`` runs the plain versions on the CPU.
@@ -55,6 +56,7 @@ STEP3_YAMLS = {
     "s101": str(CONFIGS / "inference" / "AFI-GAN_cascade_mask_rcnn_ResNeSt101_PAFPN.yaml"),
     "swin": str(CONFIGS / "inference" / "AFI-GAN_cascade_rcnn_swint_BiFPN_ST.yaml"),
     "centermask": str(CONFIGS / "inference" / "AFI-GAN_centermask_R_50_BiFPN.yaml"),
+    "keypoint": str(CONFIGS / "inference" / "AFI-GAN_maskrcnn_R_50_FPN.yaml"),
 }
 DATASET = "dynval_train"
 
@@ -210,6 +212,14 @@ def _family_overrides(cfg, fam, tiny):
             cfg.MODEL.BIFPN.FPN_REPEAT = 1
             cfg.MODEL.AFI.IN_CHANNELS = 32
             cfg.MODEL.FCOS.NUM_CONVS = 1
+    elif fam == "keypoint":
+        # Keypoint R-CNN R-50-FPN stage 3: the mask branch swapped for the
+        # keypoint branch; the scenes carry 3 keypoints an object
+        cfg.MODEL.MASK_ON = False
+        cfg.MODEL.KEYPOINT_ON = True
+        cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS = 3
+        cfg.SOLVER.BASE_LR = 0.005
+        cfg.SOLVER.IMS_PER_BATCH = 2 if tiny else 4
     elif fam == "swin":
         # Swin-T BiFPN cascade: the AdamW + LayerNorm + bf16 training path
         cfg.MODEL.SWINT.EMBED_DIM = 96
@@ -440,10 +450,6 @@ def main(argv=None) -> int:
                 summary["stages"][s] = checks
                 ok &= stage_ok
         return _finish(summary, ok, args.out)
-
-    if fam == "keypoint":
-        raise NotImplementedError("--family keypoint: the port has no keypoint head yet "
-                                  "(ROADMAP queue 1 #6)")
 
     from ..data.coco import CocoDataset, register_dataset
     from ..engine.trainers import AFExtractorTrainer, AFIGANTrainer, TargetDetectorTrainer

@@ -272,6 +272,20 @@ def _sag_mask_key(p: Tuple[str, ...]) -> Optional[Tuple[str, Callable]]:
     return None
 
 
+def _keypoint_key(p: Tuple[str, ...]) -> Optional[Tuple[str, Callable]]:
+    """roi_heads/keypoint_head subtree path → d2 key (the inverse of the JAX
+    package's keypoint-head mapping): ``conv_fcn{i}/conv`` convs and the
+    ``score_lowres`` deconv."""
+    pre = "roi_heads.keypoint_head."
+    if p[0] == "score_lowres" and len(p) == 2:
+        return (pre + "score_lowres.weight", inv_deconv) if p[1] == "kernel" else (
+            pre + "score_lowres.bias", ident)
+    if re.match(r"^conv_fcn\d+$", p[0]) and p[1] == "conv":
+        name, tf = _conv_leaf(p[2])
+        return f"{pre}{p[0]}.{name}", tf
+    return None
+
+
 def translate_path(path: Tuple[str, ...], fc1_channels: Dict[str, int],
                    tower_step: int = 3) -> Optional[Tuple[str, Callable]]:
     """Flax params / batch_stats path → (d2 key, inverse transform), or
@@ -349,6 +363,22 @@ def translate_path(path: Tuple[str, ...], fc1_channels: Dict[str, int],
             name = "weight" if p[3] == "kernel" else "bias"
             return (f"{prefix}{p[2]}.{name}",
                     inv_linear if name == "weight" else ident)
+        if head == "keypoint_head":
+            return _keypoint_key(p[2:])
+        m = re.match(r"^res5/block(\d+)$", head)
+        if m:  # the Res5 heads' res5 stage ("res5/block0" is one flax key)
+            prefix = f"roi_heads.res5.{m.group(1)}.{p[2]}"
+            if p[3] == "conv" and p[4] == "kernel":
+                return prefix + ".weight", inv_conv
+            if p[3] == "norm":
+                return f"{prefix}.norm.{_NORM_LEAF[p[4]]}", ident
+            return None
+        if head == "mask_deconv":  # the Res5 heads' C4 mask head
+            return (("roi_heads.mask_head.deconv.weight", inv_deconv) if p[2] == "kernel"
+                    else ("roi_heads.mask_head.deconv.bias", ident))
+        if head == "mask_predictor" and p[2] == "conv":
+            name, tf = _conv_leaf(p[3])
+            return f"roi_heads.mask_head.predictor.{name}", tf
         if head == "mask_head":
             if p[2] == "deconv":
                 if p[3] == "kernel":

@@ -71,6 +71,25 @@ CPU):
               the canvas of their 800/1333 test sizes, batch 2, bf16, the same
               two traffics; 4 pooler calls a batch (3 cascade box stages and the
               mask head on the final detections), 3 generator calls, 4 NMS
+  7b. slice_keypoint  Keypoint R-CNN R-50-FPN(AFI) at full width (the main
+              path's YAML with d2's Base-Keypoint-RCNN-FPN edits: 17 keypoints
+              through 8 x 512 convs, one class), 832x1344, batch 2, bf16, the
+              two traffics of phase 3: 3 generator calls, 2 pool calls (the box
+              7x7 and the keypoint 14x14 with its own sampling and alignment)
+              and 4 NMS a batch asserted, every batch's keypoints (2, 100, 17,
+              3), finite and inside their boxes; one batch of 100 detections
+              an image with every call held against its plain version
+  7c. res5    the Res5 (C4) ROI heads over the same FPN(AFI) (the RPN and the
+              heads on p4, res5 2048/512 inside the head, masks), full width,
+              batch 2, bf16, the two traffics: 2 window_gather and 2 pool
+              launches (the fast pooler's overflow slots) and 4 NMS a batch
+              asserted, one batch with every call held (window_gather bit for
+              bit) and each window_gather call timed against its plain
+              version, the indexing gather and its bound; then stage-3
+              training as phase 10 (ROI batch 512): the fast pooler's
+              training route, one window_gather, one pool (its overflow
+              slots), one pool backward and 2 NMS launches a step, all held
+              on one step and timed on a step's own calls
   8. tta      the flagship YAML unchanged (Swin-L + BiFPN x7 + Cascade R-CNN;
               9 scales x flip) through ``engine/tta.py::run_tta_inference`` over
               an on-disk COCO set of 2 random-pixel 480x640 images, bf16: seconds
@@ -121,6 +140,11 @@ CPU):
               eval pass of the trained model under ``no_grad``: 24 attention
               and 55 LayerNorm launches, every kernel call held against its
               plain version
+ 10f. train_keypoint  stage-3 training of phase 7b's Keypoint R-CNN the same
+              way (17 COCO keypoints an object, the flip through their
+              left/right permutation): 2 pool launches each way (box 7x7,
+              keypoint 14x14) and 2 NMS a step, the held step holding the
+              pool's backward too
  10e. train_ddp  data-parallel training through ``engine/launch.py``: two ranks
               spawned on this one card over gloo (``device="cuda:0"``,
               ``backend="gloo"``: NCCL refuses two ranks on one device; gloo
@@ -178,8 +202,10 @@ CPU):
               agree at the golden-regression tolerances. The R-50 model under
               both poolers, a narrow Swin model (embed 32, window 4), a
               narrow CenterMask under ``windowed``, the R-50-PAFPN model, a
-              narrow ResNeSt-PAFPN cascade mask model, and TTA with masks on
-              a narrow R-50 (merged detections and averaged masks)
+              narrow ResNeSt-PAFPN cascade mask model, TTA with masks on
+              a narrow R-50 (merged detections and averaged masks), Keypoint
+              R-CNN with two keypoint convs of 64 (keypoints within 0.05 px)
+              and the Res5 heads (window_gather and the overflow pool)
  14. train_card_vs_cpu  one stage-3 step of each of four narrow float32
               models (R-50, CenterMask, the ResNeSt cascade's heads over a
               ResNet-50, the Swin cascade with the same DropPath masks) on the
@@ -198,7 +224,11 @@ CPU):
               finite, ms an iteration and peak memory a stage, no launch in
               any step of stage 1 and exactly 2 pool launches each way and 8
               NMS in every step of stages 2 and 3, each stage's first step
-              with those calls held against their plain versions; (b)
+              with those calls held against their plain versions, the data
+              time a stage beside the serial loader's (PERF.md); (a2)
+              ``validate_training --family keypoint`` (Keypoint R-CNN stage
+              3, 150 iterations at 4 images): every judge, 2 pool launches
+              each way and 4 NMS every step, the first step held; (b)
               ``generate_pseudo_labels`` with (a)'s stage-3 checkpoint over its
               16 images at score 0.05: 48 chain, 9 upsample, 2 pool and 2 NMS
               launches on every image, the first image's calls held against
@@ -223,6 +253,7 @@ import copy
 import functools
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -940,7 +971,8 @@ def check_pool_backward(results, path, tag, feats, boxes, lv, grad, strides, p, 
             short = without(k)
             r_all = over(flat(short), g_p)
             r_lvl = max(over(a.float(), b.float()) for a, b in zip(short, want))
-            log(f"  {name(k)} ({float(area.flatten()[k]):.0f} px^2 at p{2 + int(lv.flatten()[k])}"
+            level = int(math.log2(strides[int(lv.flatten()[k])]))
+            log(f"  {name(k)} ({float(area.flatten()[k]):.0f} px^2 at p{level}"
                 f"{', the smallest' if k == small else ''}): {r_all:.2f}x the bound, "
                 f"{r_lvl:.2f}x a bound from its level's largest entry")
             if r_all > worst:
@@ -1418,6 +1450,17 @@ def check_outputs(dets, masks, b, d, mask_size):
         if tuple(masks.shape) != (b, d, mask_size, mask_size):
             raise AssertionError(f"masks shape {tuple(masks.shape)}")
         finite.append(("masks", masks))
+    if dets.keypoints is not None:
+        kp = dets.keypoints.float()
+        if kp.dim() != 4 or tuple(kp.shape[:2]) != (b, d) or kp.shape[-1] != 3:
+            raise AssertionError(f"dets.keypoints shape {tuple(kp.shape)}")
+        finite.append(("keypoints", kp))
+        bx = dets.boxes.float()[:, :, None, :]
+        x, y = kp[..., 0], kp[..., 1]
+        inside = ((x >= bx[..., 0] - 1e-3) & (x <= bx[..., 2] + 1e-3)
+                  & (y >= bx[..., 1] - 1e-3) & (y <= bx[..., 3] + 1e-3))
+        if not bool(inside[dets.valid].all()):
+            raise AssertionError("a keypoint outside its detection's box")
     for name, t in finite:
         if not bool(torch.isfinite(t.float()).all()):
             raise AssertionError(f"non-finite {name}")
@@ -1453,8 +1496,12 @@ def run_batches(name, cfg, batches, per_batch=None):
             torch.cuda.synchronize()
             ms.append(1000 * (time.perf_counter() - t0))
             fcos = cfg.MODEL.META_ARCHITECTURE in ("FCOS", "CenterMask")
+            # the Res5 heads' masks come from the res5 output at half the pool
+            res5 = not fcos and cfg.MODEL.ROI_HEADS.NAME == "Res5ROIHeads"
+            mask_size = 2 * (cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION // 2) if res5 else 28
             check_outputs(dets, masks, 2, cfg.MODEL.FCOS.POST_NMS_TOPK_TEST if fcos
-                          else cfg.TEST.DETECTIONS_PER_IMAGE, 28 if cfg.MODEL.MASK_ON else None)
+                          else cfg.TEST.DETECTIONS_PER_IMAGE,
+                          mask_size if cfg.MODEL.MASK_ON else None)
             valid.append(int(dets.valid.sum()))
     counts = dict(LAUNCHES)
     log(f"  {name}: launches in {len(batches)} batches " + json.dumps(counts)
@@ -1859,11 +1906,13 @@ class HeldKernels:
     calls launch nothing."""
 
     KINDS = {"afi_chain": "gen", "afi_upsample": "gen", "roi_pool": "pool",
-             "roi_pool_bwd": "pool", "layer_norm": "ln", "window_attention": "attn"}
+             "roi_pool_bwd": "pool", "layer_norm": "ln", "window_attention": "attn",
+             "window_gather": "copy"}
 
-    def __init__(self, dtype_name, backward=False):
+    def __init__(self, dtype_name, backward=False, windows=False):
         self.dtype_name = dtype_name
         self.backward = backward
+        self.windows = windows  # the windowed pooler's copy (window_gather) too
         self.err = {}    # kernel → max error
         self.calls = {}  # kernel → calls compared
         self.nms = []    # per NMS call: (valid candidates, kept, suppressed up to the stop)
@@ -1887,6 +1936,11 @@ class HeldKernels:
                 valid_s = torch.gather(a[1], 1, a[2])[:, :upto]
                 self.nms.append((int(a[1].sum()), int(got.sum()),
                                  int((valid_s & ~got[:, :upto]).sum())))
+                err = 0.0
+            elif name == "window_gather":  # a copy: bit for bit (no float32 copies)
+                if not torch.equal(got, want):
+                    raise AssertionError("window_gather: the kernel's windows differ from "
+                                         "the plain slices")
                 err = 0.0
             elif name == "roi_pool_bwd":
                 top = float(a[3].abs().max())
@@ -1933,6 +1987,13 @@ class HeldKernels:
             self._saved.append((roi_pool, "roi_pool_backward", roi_pool.roi_pool_backward))
             roi_pool.roi_pool_backward = self._held("roi_pool_bwd", roi_pool.roi_pool_backward,
                                                     roi_pool.roi_pool_backward_plain)
+        if self.windows:
+            from afigan_tpu_torch.ops import roi_align
+            from afigan_tpu_torch.ops.kernels import window_gather
+
+            self._saved.append((roi_align, "gather_windows", roi_align.gather_windows))
+            roi_align.gather_windows = self._held("window_gather", window_gather.gather_windows,
+                                                  window_gather.gather_windows_plain)
         return self
 
     def __exit__(self, *exc):
@@ -2252,6 +2313,8 @@ def split_rcnn(model, batch):
             "box_predictor": rh.box_predictor[-1] if cascade else rh.box_predictor}
     if rh.mask_on:
         mods["mask_head"] = rh.mask_head
+    if getattr(rh, "keypoint_on", False):
+        mods["keypoint_head"] = rh.keypoint_head
     marks = layer_marks(model, batch, mods)
     t = {}
     for name, ts in marks:
@@ -2274,6 +2337,13 @@ def split_rcnn(model, batch):
             ("detection (decode, nms) + mask pool", t["mask_head<"] - t["box_predictor>"]),
             ("mask head", t["mask_head>"] - t["mask_head<"]),
             ("output", t["end"] - t["mask_head>"])]
+    elif "keypoint_head" in mods:
+        stages += [
+            ("detection (decode, nms) + keypoint pool",
+             t["keypoint_head<"] - t["box_predictor>"]),
+            ("keypoint head (8 convs, deconv, upsample)",
+             t["keypoint_head>"] - t["keypoint_head<"]),
+            ("heatmaps to keypoints + output", t["end"] - t["keypoint_head>"])]
     else:
         stages.append(("detection (decode, nms) + output", t["end"] - t["box_predictor>"]))
     log_layers(marks, stages)
@@ -2331,10 +2401,16 @@ SWIN_EVAL_PASS = {"layer_norm": 55, "window_attention": 24}
 SWIN_YAML = "inference/AFI-GAN_cascade_rcnn_swint_BiFPN_ST.yaml"
 
 
-def train_records(gen, n_img=2, hw=(800, 1333), n_obj=12):
+# COCO person keypoints' left/right permutation (d2's
+# create_keypoint_hflip_indices over the 17 COCO names)
+COCO_KEYPOINT_HFLIP = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+
+
+def train_records(gen, n_img=2, hw=(800, 1333), n_obj=12, n_keypoints=0, n_classes=80):
     """In-memory COCO-style records: random pixels, and from ``gen`` per
-    image ``n_obj`` boxes (xyxy, 24-400 px a side), classes in [0, 80) and an
-    octagon polygon inside each box."""
+    image ``n_obj`` boxes (xyxy, 24-400 px a side), classes in [0, n_classes) and an
+    octagon polygon inside each box; with ``n_keypoints``, that many COCO
+    keypoints an object inside its box, visibility 2, 1 or 0 (zeroed)."""
     import torch
 
     h, w = hw
@@ -2350,8 +2426,14 @@ def train_records(gen, n_img=2, hw=(800, 1333), n_obj=12):
             poly = np.stack([x0 + bw / 2 * (1 + 0.95 * np.cos(ang)),
                              y0 + bh / 2 * (1 + 0.95 * np.sin(ang))], 1).reshape(-1)
             anns.append({"bbox": [x0, y0, x0 + bw, y0 + bh], "iscrowd": 0,
-                         "category_id": int(torch.randint(0, 80, (1,), generator=gen)),
+                         "category_id": int(torch.randint(0, n_classes, (1,),
+                                                          generator=gen)),
                          "segmentation": [poly.tolist()]})
+            if n_keypoints:
+                u = torch.rand(n_keypoints, 2, generator=gen).numpy()
+                vis = torch.randint(0, 3, (n_keypoints,), generator=gen).numpy()
+                kp = np.stack([x0 + u[:, 0] * bw, y0 + u[:, 1] * bh, vis], 1) * (vis > 0)[:, None]
+                anns[-1]["keypoints"] = kp.reshape(-1).tolist()
         recs.append({"image": img, "image_id": i + 1, "height": h, "width": w,
                      "annotations": anns})
     return recs
@@ -2644,8 +2726,160 @@ def phase_train_swin(results):
                 (7, 7, 7), verify=swin_verify, after=swin_eval_pass)
 
 
+def keypoint_train_cfg(out_dir):
+    """Keypoint R-CNN R-50-FPN(AFI) (``config.KEYPOINT_EDITS`` over the main
+    path's YAML: 17 keypoints, 8 x 512 convs, one class, 1500 proposals)
+    at full width; otherwise ``train_cfg``'s."""
+    from afigan_tpu_torch.config import KEYPOINT_EDITS, R50_FPN_YAML
+
+    return train_cfg(out_dir, R50_FPN_YAML, *KEYPOINT_EDITS)
+
+
+def res5_train_cfg(out_dir):
+    """The Res5 heads over the main path's FPN(AFI) (``config.RES5_EDITS``:
+    the RPN and the heads on p4, res5 2048/512 inside the head, masks) at
+    full width, ROI batch 512; otherwise ``train_cfg``'s."""
+    from afigan_tpu_torch.config import R50_FPN_YAML, RES5_EDITS
+
+    return train_cfg(out_dir, R50_FPN_YAML, *RES5_EDITS)
+
+
+# Keypoint R-CNN a batch: the generator as r50's, the box pool (7x7) and the
+# keypoint pool (14x14, its own sampling ratio and alignment), NMS for the
+# proposals and the detections an image
+KEYPOINT_PER_BATCH = dict(R50_PER_BATCH, roi_pool=2)
+KEYPOINT_HELD = {"afi_chain": 3, "afi_upsample": 3, "roi_pool": 2, "nms": 4}
+# a step: the box and the keypoint pool both ways, the RPN's NMS an image
+KEYPOINT_TRAIN_PER_STEP = dict(TRAIN_PER_STEP)
+# the Res5 heads a batch: the fast pooler over p4 for the proposals and for
+# the detections' masks, each one window_gather launch and one roi_pool
+# launch over the overflow slots (fixed shapes)
+RES5_PER_BATCH = dict(R50_PER_BATCH, roi_pool=2, window_gather=2)
+RES5_HELD = {"afi_chain": 3, "afi_upsample": 3, "roi_pool": 2, "window_gather": 2, "nms": 4}
+# a step: the fast pooler's training route, its forward one window_gather
+# launch and one roi_pool launch over the overflow slots, its backward one
+# launch of the pool's backward
+RES5_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, roi_pool=1, roi_pool_bwd=1, window_gather=1)
+
+
+def held_batch(path, model, batch, want, windows=False):
+    """One batch under ``HeldKernels`` (bf16): the calls made must be
+    ``want``; their largest errors logged."""
+    from afigan_tpu_torch.engine.inference import predict
+
+    with HeldKernels("bfloat16", windows=windows) as held:
+        predict(model, batch)
+    if held.calls != want:
+        raise AssertionError(f"{path}: held {held.calls}, expected {want}")
+    log(f"  {path}: one batch's launches held against their plain versions: " + ", ".join(
+        f"{k} x{n} max_abs_err {held.err[k]:.3e}" for k, n in held.calls.items())
+        + f"; NMS calls (valid candidates, kept, suppressed before the stop) {held.nms}")
+
+
+def phase_slice_keypoint(results, n_batches=10):
+    """Keypoint R-CNN R-50-FPN(AFI) inference at full width: the two
+    traffics of phase slice, the launches of every batch asserted, every
+    batch's keypoints (2, 100, 17, 3), finite and inside their boxes; one
+    batch of 100 detections an image with every call held."""
+    from afigan_tpu_torch.config import keypoint_path_cfg
+
+    model, batch = run_slice(results, "keypoint", keypoint_path_cfg, R50_CANVAS,
+                             KEYPOINT_PER_BATCH, n_batches)
+    from afigan_tpu_torch.engine.inference import predict
+
+    dets, masks = predict(model, batch)
+    if masks is not None or tuple(dets.keypoints.shape) != (2, 100, 17, 3):
+        raise AssertionError(f"keypoint: keypoints {tuple(dets.keypoints.shape)}")
+    kp = dets.keypoints[dets.valid]
+    log(f"  keypoint: {int(dets.valid.sum())} detections, keypoint scores "
+        f"{float(kp[..., 2].min()):.3e}-{float(kp[..., 2].max()):.3e}, all inside their boxes")
+    held_batch("keypoint", model, batch, KEYPOINT_HELD)
+
+
+def phase_train_keypoint(results):
+    train_phase(results, "train_keypoint", keypoint_train_cfg, R50_CANVAS,
+                KEYPOINT_TRAIN_PER_STEP, (7, 14), keypoints=17, held_backward=True)
+
+
+def capture_windows(fn):
+    """``fn()`` with every ``gather_windows`` call's inputs kept: [(concat,
+    rows, cols, window)]."""
+    from afigan_tpu_torch.ops import roi_align
+
+    calls, real = [], roi_align.gather_windows
+
+    def record(concat, rows, cols, window):
+        calls.append((concat, rows.clone(), cols.clone(), window))
+        return real(concat, rows, cols, window)
+
+    roi_align.gather_windows = record
+    try:
+        fn()
+    finally:
+        roi_align.gather_windows = real
+    return calls
+
+
+def time_window_gather(results, path, calls):
+    """Each captured ``window_gather`` call of one batch: kernel, plain (a
+    stack of slices) and the one-call indexing gather by CUDA events, and the
+    bound (its bytes), into ``path``'s bf16 tally."""
+    import torch
+
+    from afigan_tpu_torch.ops.kernels.window_gather import gather_windows, gather_windows_plain
+
+    for concat, rows, cols, win in calls:
+        dtype_name = str(concat.dtype)[6:]
+        ar = torch.arange(win, device=concat.device)
+        r, (sum_h, wmax, c) = rows.shape[0], concat.shape
+        fk = lambda: gather_windows(concat, rows, cols, win)  # noqa: E731
+        fp = lambda: gather_windows_plain(concat, rows, cols, win)  # noqa: E731
+        fl = lambda: concat[(rows[:, None] + ar)[:, :, None],  # noqa: E731
+                            (cols[:, None] + ar)[:, None, :]]
+        if not torch.equal(fk(), fp()):
+            raise AssertionError(f"{path}: window_gather differs from its plain version")
+        tk, tp, tl = median_ms(fk), median_ms(fp, iters=3, inner=1), median_ms(fl)
+        under = torch.zeros((sum_h, wmax), dtype=torch.bool, device=concat.device)
+        under[(rows[:, None] + ar)[:, :, None], (cols[:, None] + ar)[:, None, :]] = True
+        elt = ELT[dtype_name]
+        written, read = r * win * win * c * elt, int(under.sum()) * c * elt
+        nbytes = written + read + 8 * r
+        log(f"  window_gather {path} {dtype_name} ({sum_h}, {wmax}, {c}) R={r} window={win}: "
+            f"kernel {tk:.3f} ms ({nbytes / tk / 1e9:.2f} TB/s) plain {tp:.3f} ms "
+            f"indexing gather {tl:.3f} ms, bound {1000 * nbytes / HBM_BYTES_PER_S:.3f} ms")
+        tally(results, "window_gather", path, dtype_name).add(tk, tp, nbytes, 0, dtype_name,
+                                                              0.0, 1, tl)
+        torch.cuda.empty_cache()
+
+
+def phase_res5(results, n_batches=5):
+    """The Res5 (C4) heads over the FPN(AFI) pyramid at full width: inference
+    under the two traffics (window_gather and the overflow pool twice a
+    batch, asserted), one batch of 100 detections an image with every call
+    (window_gather bit for bit) held and each window_gather call timed; then
+    stage-3 training through ``train_phase``: the fast pooler's training
+    route launches window_gather, the overflow pool and the pool's backward
+    once a step, all three held and timed on a step's own calls."""
+    import torch
+
+    from afigan_tpu_torch.config import res5_path_cfg
+    from afigan_tpu_torch.engine.inference import predict
+
+    model, batch = run_slice(results, "res5", res5_path_cfg, R50_CANVAS, RES5_PER_BATCH,
+                             n_batches)
+    held_batch("res5", model, batch, RES5_HELD, windows=True)
+    calls = capture_windows(lambda: predict(model, batch))
+    del model
+    torch.cuda.empty_cache()
+    time_window_gather(results, "res5", calls)
+    del calls
+    torch.cuda.empty_cache()
+    train_phase(results, "train_res5", res5_train_cfg, R50_CANVAS, RES5_TRAIN_PER_STEP, (14,),
+                held_backward=True)
+
+
 def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=None,
-                verify=None, after=None):
+                verify=None, after=None, keypoints=0, held_backward=False):
     """Stage-3 training at full width through ``TargetDetectorTrainer``: two
     iterations of ``train()`` over an in-memory dataset (mapper, loader,
     hooks, a checkpoint), then the main path: ``TRAIN_WARMUP`` + ``TRAIN_TIMED``
@@ -2655,7 +2889,8 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     plain version on its own inputs; one profiled step (device busy share)
     and one step split into forward, backward and optimizer; the pool's
     backward on one step's own ROIs (``pool_sizes``: its calls' output
-    sizes), whose calls phase ``train`` saves for ``kernel_sweep.py``. In the
+    sizes), whose calls phase ``train`` saves for ``kernel_sweep.py``, and
+    where a step launches window_gather, each of a step's calls timed. In the
     held step every NMS call has valid candidates and suppresses some, and
     the ROI sampler takes proposals besides the appended GT. A Swin's
     DropPath masks come from the trainer's stream; those of the timed steps
@@ -2664,7 +2899,9 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     ``prepare``: a change to the seeded model before the first step;
     ``verify(path, model, state dict before the timed steps, their
     metrics)``: checks after them; ``after(path, model, inputs, results)``:
-    run last, on the trained model."""
+    run last, on the trained model. ``keypoints``: COCO keypoints an object
+    in the records (one class, the dataset's flip permutation);
+    ``held_backward``: the held step holds the pool's backward too."""
     import json as _json
     import shutil
     import types
@@ -2686,12 +2923,15 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
 
     out_dir = Path(__file__).resolve().parent / "output" / f"chip_smoke_{path}"
     shutil.rmtree(out_dir, ignore_errors=True)
-    records = train_records(torch.Generator().manual_seed(7))
-    coco.register_dataset("chip_smoke_train", lambda: types.SimpleNamespace(records=records))
+    hflip = COCO_KEYPOINT_HFLIP[:keypoints] if keypoints else None
+    records = train_records(torch.Generator().manual_seed(7), n_keypoints=keypoints,
+                            n_classes=1 if keypoints else 80)
+    coco.register_dataset("chip_smoke_train", lambda: types.SimpleNamespace(
+        records=records, keypoint_hflip_indices=hflip))
     cfg = make_cfg(out_dir)
     cfg.SOLVER.MAX_ITER = 2
     cfg.SOLVER.CHECKPOINT_PERIOD = 2
-    mapper = DatasetMapper(cfg, is_train=True, seed=0)
+    mapper = DatasetMapper(cfg, is_train=True, seed=0, keypoint_hflip_indices=hflip)
     batch = collate_batch([mapper(r) for r in records], cfg.TPU.IMAGE_BUCKETS,
                           required_size_divisibility(cfg))
     if tuple(batch["image"].shape[1:3]) != canvas:
@@ -2760,13 +3000,17 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
         f"{np.median(ev):.1f} ms ({min(ev):.1f}-{max(ev):.1f}), "
         f"{canvas[0]}x{canvas[1]} canvas, bf16, lr {TRAIN_LR}, {n_gt} GT boxes; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for k in ("roi_pool", "roi_pool_bwd", "nms", "layer_norm", "window_attention"):
+    for k in ("roi_pool", "roi_pool_bwd", "nms", "layer_norm", "window_attention",
+              "window_gather"):
         results[k].setdefault("launches", {})[path] = counts[k] // n
     # one step with every pooler and NMS launch held against its plain
     # version on the launch's own inputs (the pool's backward: below)
-    with HeldKernels("bfloat16") as held, SampledROIs(inputs["gt"].valid.shape[1]) as rois:
+    windows = per_step["window_gather"] > 0
+    with HeldKernels("bfloat16", backward=held_backward, windows=windows) as held, \
+            SampledROIs(inputs["gt"].valid.shape[1]) as rois:
         step()
-    want = {k: per_step[k] for k in ("roi_pool", "nms")}
+    want = {k: per_step[k] for k in ("roi_pool", "nms", "window_gather")
+            + (("roi_pool_bwd",) if held_backward else ()) if per_step[k]}
     if held.calls != want:
         raise AssertionError(f"{path}: held {held.calls} launches, expected {want}")
     log(f"  {path}: one step's launches held against their plain versions: " + ", ".join(
@@ -2824,6 +3068,10 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
         f"optimizer {1000 * opt:.1f} ms ({100 * opt / tot:.1f} %)")
     # the pool's backward on this step's own ROIs and gradients, saved for
     # ``kernel_sweep.py roi_pool_bwd``
+    if windows:
+        wcalls = capture_windows(step)
+        time_window_gather(results, path, wcalls)
+        del wcalls
     calls = capture_pool_backward(step)
     if path == "train":
         save_pool_calls(calls, POOL_CALLS)
@@ -3564,10 +3812,14 @@ def ddp_stage3_rank(out_dir: Path, world: int, profiled: bool):
     build_loader, save, write = (trainers.build_train_loader, trainers.save_checkpoint,
                                  events.JSONWriter.write)
 
-    def loader(*a, **kw):
-        for b in build_loader(*a, **kw):
-            seen["train_ids"].append(sorted(int(i) for i in b["image_id"]))
-            yield b
+    def loader(*a, **kw):  # a generator: the trainer's close() ends it and the loader
+        inner = build_loader(*a, **kw)
+        try:
+            for b in inner:
+                seen["train_ids"].append(sorted(int(i) for i in b["image_id"]))
+                yield b
+        finally:
+            inner.close()
 
     def saving(directory, iteration, *a, **kw):
         seen["saved"].append(iteration)
@@ -4081,6 +4333,14 @@ def card_vs_cpu(name, cfg, canvas, size):
         mc = m_c[0].sum(dim=(1, 2)).numpy()[vc]
         np.testing.assert_allclose(mg, mc, rtol=5e-3, atol=5e-3, err_msg="mask_sum")
         msg += f", max |d mask_sum| {np.abs(mg - mc).max():.2e}"
+    if d_c.keypoints is not None:
+        kg, kc = d_g.keypoints[0].cpu().numpy()[vg], d_c.keypoints[0].numpy()[vc]
+        np.testing.assert_allclose(kg[..., :2], kc[..., :2], rtol=0, atol=0.05,
+                                   err_msg="keypoints(px)")
+        np.testing.assert_allclose(kg[..., 2], kc[..., 2], rtol=0, atol=1e-3,
+                                   err_msg="keypoint scores")
+        msg += (f", max |d keypoint| {np.abs(kg[..., :2] - kc[..., :2]).max():.2e} px, "
+                f"max |d keypoint score| {np.abs(kg[..., 2] - kc[..., 2]).max():.2e}")
     log(msg + f"; launches on the card {json.dumps(launched)}")
     return launched
 
@@ -4203,6 +4463,19 @@ def phase_card_vs_cpu(results):
                      (120, 250)), "narrow ResNeSt", ("roi_pool", "afi_chain", "afi_upsample",
                                                      "nms"))
     need(card_vs_cpu_tta(), "TTA R-50", ("roi_pool", "afi_chain", "afi_upsample", "nms"))
+    # Keypoint R-CNN (the keypoint pool at 14x14, its own sampling and
+    # alignment) with two keypoint convs of 64, and the Res5 heads (the fast
+    # pooler over p4: window_gather and the overflow pool)
+    from afigan_tpu_torch.config import keypoint_path_cfg, res5_path_cfg
+
+    cfg = keypoint_path_cfg()
+    cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS = [64, 64]
+    need(card_vs_cpu("narrow keypoint", cfg, (320, 320), (288, 320)), "keypoint",
+         ("roi_pool", "afi_chain", "afi_upsample", "nms"))
+    # a 512x512 canvas: at 320x320 the random RPN's 128 best p4 anchors all
+    # decode outside the image, on the CPU as on the card
+    need(card_vs_cpu("res5", res5_path_cfg(), (512, 512), (480, 512)), "Res5",
+         ("window_gather", "roi_pool", "afi_chain", "afi_upsample", "nms"))
 
 
 # ---------------------------------------------------------------------------
@@ -4231,6 +4504,18 @@ PRECISE_BN_ITERS, PRECISE_BN_FORWARDS = 4, 8
 TOOLS_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, nms=8)
 # the held calls of such a step (one launch a call)
 TOOLS_TRAIN_HELD = {"roi_pool": 2, "nms": 8, "roi_pool_bwd": 2}
+# the loader's mapping threads in validate_training (the JAX tool's
+# DATALOADER.NUM_WORKERS) and the data time a stage took when the loader
+# mapped serially on the training thread (PERF.md, section 5; NVIDIA H100
+# 80GB HBM3, 700.00 W)
+TOOLS_WORKERS = 2
+SERIAL_DATA_MS = {"1": 100.9, "2": 101.3, "3": 92.0}
+# validate_training --family keypoint: the JAX run's length
+# (benchmarks/DYNVAL_r05_keypoint.json) at 4 images; a step launches the box
+# and the keypoint pool both ways and the RPN's NMS an image
+KEYPOINT_ITERS = 150
+KEYPOINT_TOOLS_PER_STEP = dict(TRAIN_PER_STEP, nms=4)
+KEYPOINT_TOOLS_HELD = {"roi_pool": 2, "nms": 4, "roi_pool_bwd": 2}
 # the held calls of a pseudo-label image: the generator's two one-call
 # entries at each of the three levels it runs at, the box and the mask pool,
 # NMS for the proposals and for the detections
@@ -4346,8 +4631,10 @@ def tools_validate(results):
     for s in ("1", "2", "3"):
         t = summary["timing"][s]
         log(f"  stage {s}: {1000 * t['median_iter_s']:.1f} ms an iteration (median of the "
-            f"writer's records; data {1000 * t['median_data_s']:.1f} ms), "
-            f"{8 / t['median_iter_s']:.2f} images/s, peak {t['peak_gib']:.2f} GiB")
+            f"writer's records; data {1000 * t['median_data_s']:.1f} ms on "
+            f"{TOOLS_WORKERS} mapping threads, {SERIAL_DATA_MS[s]} ms with a serial "
+            f"loader), {8 / t['median_iter_s']:.2f} images/s, "
+            f"peak {t['peak_gib']:.2f} GiB")
         for key, c in summary["stages"][s].items():
             if isinstance(c, dict):
                 first = "peak" if "peak" in c else "head"
@@ -4368,6 +4655,65 @@ def tools_validate(results):
     if rc != 0 or not summary["ok"]:
         raise AssertionError(f"validate_training: exit {rc}, ok {summary['ok']}")
     return out
+
+
+def log_judges(what, checks):
+    """A stage's judged losses (head or peak beside tail) and curves; raises
+    on a verdict that is false or a loss that is not finite."""
+    for key, c in checks.items():
+        if isinstance(c, dict):
+            first = "peak" if "peak" in c else "head"
+            log(f"    {key}: {first} {c[first]:.4f} -> tail {c['tail']:.4f}, fell {c['fell']}")
+            vals, ok = (c[first], c["tail"]), c["fell"]
+        elif key.endswith("_curve"):
+            log(f"    {key}: " + ", ".join(f"{it}: {v:.4f}" for it, v in c))
+            vals, ok = [v for _, v in c], True
+        else:
+            log(f"    {key}: {c}")
+            vals, ok = [c] if isinstance(c, float) else [], c is not False
+        if not ok or not np.all(np.isfinite(np.asarray(vals, dtype=float))):
+            raise AssertionError(f"{what}: {key} {c}")
+
+
+def tools_validate_keypoint(results):
+    """(a2) validate_training --family keypoint (Keypoint R-CNN R-50-FPN,
+    stage 3) at the JAX run's 150 iterations and 4 images: every verdict
+    true; every step 2 pool launches each way (box, keypoint) and 4 NMS, the
+    first step held against the plain versions (the pool's backward too)."""
+    import shutil
+
+    from afigan_tpu_torch.tools import validate_training
+
+    out = TOOLS_DIR / "validate_keypoint"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    with StepLaunches() as steps:
+        rc = validate_training.main(["--family", "keypoint", "--iters", str(KEYPOINT_ITERS),
+                                     "--out", str(out)])
+    wall = time.perf_counter() - t0
+    summary = json.loads((out / "summary.json").read_text())
+    (rec,) = steps.loops
+    want = {k: v for k, v in KEYPOINT_TOOLS_PER_STEP.items() if v}
+    if rec["trainer"] != "TargetDetectorTrainer" or len(rec["steps"]) != KEYPOINT_ITERS:
+        raise AssertionError(f"validate_training keypoint: {rec['trainer']}, "
+                             f"{len(rec['steps'])} steps")
+    for i, counts in enumerate(rec["steps"]):
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"validate_training keypoint step {i}: launches {counts}")
+    held = rec["held"]
+    if held.calls != KEYPOINT_TOOLS_HELD:
+        raise AssertionError(f"validate_training keypoint: held {held.calls}")
+    t = summary["timing"]["3"]
+    log(f"  validate_training keypoint, {KEYPOINT_ITERS} iterations at 4 images: exit {rc}, "
+        f"ok {summary['ok']}, {wall:.1f} s; {1000 * t['median_iter_s']:.1f} ms an iteration "
+        f"(data {1000 * t['median_data_s']:.1f} ms), peak {t['peak_gib']:.2f} GiB; every step "
+        f"{json.dumps(want)}; the first step held: " + ", ".join(
+            f"{k} x{n} max_abs_err {held.err[k]:.3e}" for k, n in held.calls.items()))
+    log_judges("validate_training keypoint", summary["stages"]["3"])
+    if rc != 0 or not summary["ok"]:
+        raise AssertionError(f"validate_training keypoint: exit {rc}, ok {summary['ok']}")
+    for k, n in KEYPOINT_TOOLS_PER_STEP.items():
+        results[k].setdefault("launches", {})["tools_validate_keypoint"] = n
 
 
 def tools_pseudo_labels(results, validated: Path):
@@ -4572,6 +4918,7 @@ def tools_convert(validated: Path):
 
 def phase_tools(results):
     validated = tools_validate(results)
+    tools_validate_keypoint(results)
     tools_pseudo_labels(results, validated)
     trainer, cfg = tools_precise_bn()
     tools_profiler(trainer, cfg)
@@ -4622,11 +4969,15 @@ def main():
                         ("slice_swin", phase_slice_swin),
                         ("slice_centermask", phase_slice_centermask),
                         ("slice_pafpn", phase_slice_pafpn),
-                        ("slice_resnest", phase_slice_resnest), ("tta", phase_tta),
+                        ("slice_resnest", phase_slice_resnest),
+                        ("slice_keypoint", phase_slice_keypoint), ("res5", phase_res5),
+                        ("tta", phase_tta),
                         ("nms_ab", phase_nms_ab), ("train", phase_train),
                         ("train_centermask", phase_train_centermask),
                         ("train_cascade", phase_train_cascade),
-                        ("train_swin", phase_train_swin), ("train_ddp", phase_train_ddp),
+                        ("train_swin", phase_train_swin),
+                        ("train_keypoint", phase_train_keypoint),
+                        ("train_ddp", phase_train_ddp),
                         ("stage1", phase_stage1), ("stage2", phase_stage2),
                         ("stage2_fcos", phase_stage2_fcos),
                         ("card_vs_cpu", phase_card_vs_cpu),

@@ -25,7 +25,7 @@ Also: ``get_norm``'s BN made trainable (``BatchNorm2d.from_frozen``) against
 flax ``nn.BatchNorm`` (eps 1e-5 / momentum 0.9 and 1e-3 / 0.99; one value a
 channel included), BN and SyncBN train in ``build_model(train=True)`` and
 stay frozen in an eval build (FrozenBN in both), the weight-decay and learning-rate factors of every parameter equal
-to the JAX optax chain's by name, the raise of a cascade with keypoints, the
+to the JAX optax chain's by name, a cascade with keypoints (the Res5 heads raise), the
 PreciseBN hook of a trainer whose batch norm trains (none where JAX's is None),
 a trainer checkpoint of the JAX package read from ``.msgpack``, the canvas divisibility
 of every YAML against the JAX package's, and ``stage2_train`` on the FCOS
@@ -337,12 +337,16 @@ def test_decay_masks_equal_jax_by_name():
 
 def test_cascade_training_raises():
     """Cascade R-CNN trains since its losses were ported (and over a Swin
-    bottom-up since its DropPath was); a cascade with keypoints still raises
-    in a training build (queue 1 #6)."""
+    bottom-up since its DropPath was), and with keypoints since the keypoint
+    branch was; the Res5 heads with keypoints raise, as JAX's build does."""
     cfg = stage3_cfgs(("MODEL.ROI_HEADS.NAME", "CascadeROIHeads"))[1]
     assert build_model(cfg, device="cpu", train=True).training
     cfg.MODEL.KEYPOINT_ON = True
-    with pytest.raises(NotImplementedError, match="queue 1 #6"):
+    model = build_model(cfg, device="cpu", train=True)
+    assert model.training and model.roi_heads.keypoint_on
+    assert any(k.startswith("roi_heads.keypoint_head.") for k in model.state_dict())
+    cfg.MODEL.ROI_HEADS.NAME = "Res5ROIHeads"
+    with pytest.raises(ValueError, match="KEYPOINT_ON requires"):
         build_model(cfg, device="cpu", train=True)
 
 

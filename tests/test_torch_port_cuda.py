@@ -650,6 +650,29 @@ def test_pooler_under_autograd_on_the_card(dev):
     _bwd_close(got, want, torch.float32)
 
 
+def test_fast_pooler_training_route_on_the_card(dev):
+    """``multilevel_roi_align_fast`` under autograd (``WindowedPool``): one
+    window_gather and one overflow roi_pool launch forward, one roi_pool_bwd
+    launch backward; the forward equals the windowed pooler's on the same
+    tensors, the level gradients the plain gather's."""
+    from afigan_tpu_torch.ops.roi_align import multilevel_roi_align_fast
+
+    strides, feats, boxes = _pool_inputs(np.random.RandomState(7), dev, 64)
+    grad = _t(np.random.RandomState(8), 2, 30, 7, 7, 64).to(dev)
+    leaves = [f.clone().requires_grad_(True) for f in feats]
+    n0 = {k: LAUNCHES[k] for k in ("window_gather", "roi_pool", "roi_pool_bwd")}
+    out = multilevel_roi_align_fast(leaves, boxes, strides, 7)
+    got = torch.autograd.grad(out, leaves, grad)
+    assert {k: LAUNCHES[k] - n for k, n in n0.items()} == {
+        "window_gather": 1, "roi_pool": 1, "roi_pool_bwd": 1}
+    with torch.no_grad():
+        torch.testing.assert_close(out, multilevel_roi_align_windowed(feats, boxes, strides, 7),
+                                   rtol=0, atol=0)
+    plain = [f.clone().requires_grad_(True) for f in feats]
+    want = torch.autograd.grad(multilevel_roi_align(plain, boxes, strides, 7), plain, grad)
+    _bwd_close(got, want, torch.float32)
+
+
 def test_forward_only_kernels_raise_under_autograd(dev):
     """A forward-only wrapper called under grad mode with an input that
     requires grad raises instead of dropping the graph; under no_grad it runs."""

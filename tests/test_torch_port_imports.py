@@ -39,7 +39,7 @@ SUBPACKAGES = ["afigan_tpu_torch." + m for m in (
     "stage2_train", "models.pafpn", "models.resnest", "engine.tta", "parallel",
     "parallel.dist", "engine.launch", "engine.precise_bn", "utils.msgpack_tree",
     "utils.profiling", "tools.convert_checkpoint", "tools.validate_training",
-    "tools.generate_pseudo_labels")]
+    "tools.generate_pseudo_labels", "models.keypoint_head", "models.res5_roi_heads")]
 
 
 def _violations(path):
@@ -74,6 +74,8 @@ def test_port_files_found():
     assert any(p.endswith("models/swin.py") for p in PORT_FILES)
     assert any(p.endswith("parallel/dist.py") for p in PORT_FILES)
     assert any(p.endswith("engine/launch.py") for p in PORT_FILES)
+    assert any(p.endswith("models/keypoint_head.py") for p in PORT_FILES)
+    assert any(p.endswith("models/res5_roi_heads.py") for p in PORT_FILES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, REPO))

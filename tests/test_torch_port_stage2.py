@@ -291,7 +291,7 @@ def test_fcos_step2_config_refused_before_anything_is_built(monkeypatch, tmp_pat
     # the hooks of the trainer's own loop (no step runs)
     loops = []
     monkeypatch.setattr(trainers.coco, "get_dataset", lambda name: None)
-    monkeypatch.setattr(trainers, "build_train_loader", lambda *a, **k: iter(()))
+    monkeypatch.setattr(trainers, "build_train_loader", lambda *a, **k: (b for b in ()))
 
     class Loop:
         def __init__(self, max_iter, hooks, start):

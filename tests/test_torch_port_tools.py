@@ -153,10 +153,12 @@ def test_validate_training_tiny_runs_three_r50_stages(tmp_path, monkeypatch):
     for s, key in (("1", "content_loss_p2"), ("2", "loss_cls"), ("3", "total_loss")):
         recs = [json.loads(line) for line in open(tmp_path / f"s{s}" / "metrics.json")]
         assert recs[-1]["iteration"] == 7 and np.isfinite(recs[-1][key])
-    # the verdicts again from the files, and the family the port has no head for
+    # the verdicts again from the files; the keypoint family is a stage-3
+    # family
     assert vt.main(["--tiny", "--iters", "8", "--out", out, "--rejudge"]) == 0
-    with pytest.raises(NotImplementedError, match="queue 1 #6"):
-        vt.main(["--family", "keypoint", "--out", out])
+    assert vt.parse_args(["--family", "keypoint"]).stages == "3"
+    with pytest.raises(SystemExit):
+        vt.parse_args(["--family", "keypoint", "--stages", "1,2,3"])
     with pytest.raises(SystemExit):
         vt.parse_args(["--family", "s101", "--stages", "1,2,3"])
 

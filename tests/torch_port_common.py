@@ -272,3 +272,24 @@ def assert_detections_match(got, got_masks, want, want_masks):
         ws = np.asarray(want_masks[0]).sum(axis=(1, 2))[jv]
         gs = got_masks[0].sum(dim=(1, 2)).numpy()[tv]
         np.testing.assert_allclose(gs, ws, rtol=5e-3, atol=0, err_msg="mask sums")
+
+
+def keypoint_scene_coco(root, num_images=4, hw=(96, 128)):
+    """The validation tool's generated scenes (3 keypoints an object) as a
+    COCO set under ``root``, with the keypoints named so that a flip swaps
+    the last two, and the second of every third object invisible: (json,
+    image dir)."""
+    import json
+
+    from afigan_tpu_torch.tools.validate_training import make_scene_coco
+
+    json_path, img_dir = make_scene_coco(str(root), num_images=num_images, hw=hw)
+    with open(json_path) as f:
+        js = json.load(f)
+    for c in js["categories"]:
+        c["keypoints"] = ["center", "left_corner", "right_corner"]
+    for a in js["annotations"][::3]:
+        a["keypoints"][5] = 0
+    with open(json_path, "w") as f:
+        json.dump(js, f)
+    return json_path, img_dir

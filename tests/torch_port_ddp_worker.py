@@ -208,12 +208,16 @@ def cli_rank(args, out_dir):
     build_loader, save, write = (trainers.build_train_loader, trainers.save_checkpoint,
                                  events.JSONWriter.write)
 
-    def loader(*a, **kw):
-        for batch in build_loader(*a, **kw):
-            seen["image_ids"].append([int(i) for i in batch["image_id"]])
-            if r == 1:
-                time.sleep(SLOW_RANK_SLEEP)
-            yield batch
+    def loader(*a, **kw):  # a generator: the trainer's close() ends it and the loader
+        inner = build_loader(*a, **kw)
+        try:
+            for batch in inner:
+                seen["image_ids"].append([int(i) for i in batch["image_id"]])
+                if r == 1:
+                    time.sleep(SLOW_RANK_SLEEP)
+                yield batch
+        finally:
+            inner.close()
 
     def saving(directory, iteration, *a, **kw):
         seen["saved"].append(iteration)

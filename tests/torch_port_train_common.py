@@ -15,6 +15,7 @@ import types
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from tests.torch_port_common import REPO
@@ -127,6 +128,89 @@ def det_batch(b=2, h=64, w=64, m=4, seed=0):
                "valid": np.array([[True, True, False, False]] * b),
                "masks": rng.rand(b, m, 28, 28).astype(np.float32)},
     }
+
+
+def keypoint_det_batch(num_keypoints=3, **kw):
+    """``det_batch`` with (B, M, K, 3) GT keypoints: a seeded spread over
+    each GT box, one of them invisible and one outside its box."""
+    batch = det_batch(**kw)
+    boxes = batch["gt"]["boxes"]
+    b, m = boxes.shape[:2]
+    rng = np.random.RandomState(11)
+    u = rng.rand(b, m, num_keypoints, 2)
+    kp = np.zeros((b, m, num_keypoints, 3), np.float32)
+    kp[..., 0] = boxes[..., None, 0] + u[..., 0] * (boxes[..., None, 2] - boxes[..., None, 0])
+    kp[..., 1] = boxes[..., None, 1] + u[..., 1] * (boxes[..., None, 3] - boxes[..., None, 1])
+    kp[..., 2] = 2.0
+    kp[:, 0, 1] = 0.0  # invisible
+    kp[:, 1, 2, 0] = boxes[:, 1, 2] + 3.0  # right of its box
+    batch["gt"]["keypoints"] = kp * batch["gt"]["valid"][..., None, None]
+    return batch
+
+
+def _calibrated(params, cfg, images):
+    """``calibrated_jax_params`` back through ``to_jax_variables`` (the
+    inverse of the port's own mapping, which also knows the Res5 heads)."""
+    from afigan_tpu_torch.models import build_model
+    from afigan_tpu_torch.tools.frozen_bn import calibrate_frozen_bn
+    from afigan_tpu_torch.utils.converters import variables_to_state_dict
+
+    model = build_model(cfg, device="cpu", train=True)
+    sd = variables_to_state_dict({"params": params})
+    model.load_state_dict({k: torch.tensor(v) for k, v in sd.items()}, strict=True)
+    calibrate_frozen_bn(model, torch.tensor(images))
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    return to_jax_variables({"params": params}, state)["params"]
+
+
+def jax_stage3_step(extra, batch):
+    """``make_stage3_train_step`` on the narrow config ``stage3_cfgs(extra)``
+    from the JAX init (PRNGKey 0, its FrozenBN calibrated on the batch),
+    with the fixed subsample draws: (params before, metrics, params after),
+    numpy."""
+    from afigan_tpu.engine.solver import build_optimizer
+    from afigan_tpu.engine.stage3 import Stage3State, _frozen_predicates, make_stage3_train_step
+    from afigan_tpu.models import build_model as jax_build_model
+    from afigan_tpu.models.roi_heads import GroundTruth as JaxGroundTruth
+
+    mp = pytest.MonkeyPatch()
+    try:
+        patch_jax_sampler(mp)
+        cfg = stage3_cfgs(extra)[0]
+        h, w = batch["image"].shape[1:3]
+        gt = JaxGroundTruth(**{k: jnp.asarray(v) for k, v in batch["gt"].items()})
+        det = jax_build_model(cfg, train=True)
+        rng = jax.random.PRNGKey(1)
+        variables = jax.jit(lambda: det.init(
+            {"params": jax.random.PRNGKey(0), "sampling": rng},
+            jnp.zeros((1, h, w, 3)), jnp.asarray([[h, w]], jnp.int32),
+            jax.tree.map(lambda a: a[:1], gt)))()
+        params = _calibrated(jax.tree.map(np.asarray, variables["params"]),
+                             stage3_cfgs(extra)[1], batch["image"])
+        tx, _ = build_optimizer(cfg, params, _frozen_predicates(cfg))
+        state = Stage3State(params, {}, tx.init(params), jnp.zeros((), jnp.int32))
+        new_state, metrics = make_stage3_train_step(cfg)(
+            state, {"image": jnp.asarray(batch["image"]),
+                    "image_sizes": jnp.asarray(batch["image_sizes"]), "gt": gt}, rng)
+        return (params, {k: float(v) for k, v in metrics.items()},
+                jax.tree.map(np.asarray, new_state.params))
+    finally:
+        mp.undo()
+
+
+def port_stage3_step(params, extra, batch):
+    """The port's ``train_step`` from the same weights and draws: (metrics,
+    state dict before, state dict after)."""
+    from afigan_tpu_torch.engine.stage3 import batch_to_device, init_stage3_state, train_step
+    from afigan_tpu_torch.utils.converters import variables_to_state_dict
+
+    cfg = stage3_cfgs(extra)[1]
+    state = init_stage3_state(cfg, device="cpu")
+    sd = variables_to_state_dict({"params": params})
+    state.model.load_state_dict({k: torch.tensor(v) for k, v in sd.items()}, strict=True)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    metrics = train_step(cfg, state, batch_to_device(batch, "cpu"), draws=port_draws)
+    return metrics, before, {k: v.clone() for k, v in state.model.state_dict().items()}
 
 
 class GradsInState:
