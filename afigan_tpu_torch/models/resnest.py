@@ -99,7 +99,8 @@ class DeformConv(nn.Module):
         self.norm = None if n is None else n.to(device)
 
     def forward(self, x, offsets, mask=None):
-        # the range names the gather in a torch.profiler trace
+        # the range names the deformable conv (sampling, product and, in the
+        # backward, the adjoint) in a torch.profiler trace
         with record_function("deform_conv"):
             y = deform_conv2d(x, offsets, self.weight, mask, self.stride, self.dilation,
                               self.dilation).to(x.dtype)

@@ -1,4 +1,4 @@
-"""(Modulated) deformable convolution as a plain torch gather (counterpart of
+"""(Modulated) deformable convolution (counterpart of
 ``afigan_tpu/ops/deform_conv.py``, which is XLA code in the JAX package, not
 a Pallas kernel).
 
@@ -6,8 +6,12 @@ For every output position and kernel tap the input is sampled bilinearly at
 ``p + p_k + offset_k`` (zeros outside the map), optionally scaled by the
 modulation mask, and the (tap, channel) axis is contracted with the kernel in
 one matrix product. Float32 inside whatever the inputs' dtype, as the JAX
-caller casts. No kernel of its own: one is written only once a measured path
-shows that this gather bounds it.
+caller casts.
+
+Always through ``ops/kernels/deform_conv.py::DeformConv2dFunction``, with grad
+on or off: on CUDA tensors its sampling and its adjoint are the kernels of
+``csrc/deform_conv.cu`` (no fallback to the gather on the card), on CPU
+tensors their plain torch versions.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from .kernels.deform_conv import DeformConv2dFunction
+
 
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
                   mask: Optional[torch.Tensor] = None, stride: int = 1, padding: int = 1,
@@ -23,41 +29,4 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     """x (B, H, W, Cin) NHWC; offsets (B, Ho, Wo, 2K), (dy, dx) per tap in
     torch's (row-major) tap order; weight (Cout, Cin, kh, kw) OIHW; mask
     (B, Ho, Wo, K) or None → float32 (B, Ho, Wo, Cout)."""
-    b, h, w, cin = x.shape
-    cout, _, kh, kw = weight.shape
-    k = kh * kw
-    ho = (h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1
-    wo = (w + 2 * padding - dilation * (kw - 1) - 1) // stride + 1
-    dev = x.device
-    f32 = torch.float32
-    # the sampling grid of each tap before its offset: (Ho, Wo, K)
-    oy = torch.arange(ho, dtype=f32, device=dev) * stride - padding
-    ox = torch.arange(wo, dtype=f32, device=dev) * stride - padding
-    ky = torch.arange(kh, dtype=f32, device=dev) * dilation
-    kx = torch.arange(kw, dtype=f32, device=dev) * dilation
-    base_y = (oy[:, None, None, None] + ky[None, None, :, None]).expand(ho, wo, kh, kw)
-    base_x = (ox[None, :, None, None] + kx[None, None, None, :]).expand(ho, wo, kh, kw)
-    off = offsets.float().reshape(b, ho, wo, k, 2)
-    sy = base_y.reshape(ho, wo, k) + off[..., 0]
-    sx = base_x.reshape(ho, wo, k) + off[..., 1]
-    y0f, x0f = torch.floor(sy), torch.floor(sx)
-    ly, lx = sy - y0f, sx - x0f
-    y0, x0 = y0f.long(), x0f.long()
-    flat = x.float().reshape(b, h * w, cin)
-
-    def take(iy, ix):
-        """(B, Ho, Wo, K, Cin): the map at (iy, ix), zero outside it."""
-        inside = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
-        idx = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).reshape(b, -1, 1)
-        v = flat.gather(1, idx.expand(-1, -1, cin)).reshape(b, ho, wo, k, cin)
-        return torch.where(inside[..., None], v, v.new_zeros(()))
-
-    sampled = (take(y0, x0) * ((1 - ly) * (1 - lx))[..., None]
-               + take(y0, x0 + 1) * ((1 - ly) * lx)[..., None]
-               + take(y0 + 1, x0) * (ly * (1 - lx))[..., None]
-               + take(y0 + 1, x0 + 1) * (ly * lx)[..., None])
-    if mask is not None:
-        sampled = sampled * mask.float().reshape(b, ho, wo, k, 1)
-    # (K, Cin) against the kernel in one product: OIHW → (kh, kw, Cin, Cout)
-    wmat = weight.float().permute(2, 3, 1, 0).reshape(k * cin, cout)
-    return sampled.reshape(b, ho, wo, k * cin) @ wmat
+    return DeformConv2dFunction.apply(x, offsets, weight, mask, stride, padding, dilation)

@@ -32,6 +32,7 @@ SOURCES = {
     "window_attention": ("window_attention.cu",),
     "window_gather": ("window_gather.cu",),
     "nms": ("nms.cu",),
+    "deform_conv": ("deform_conv.cu",),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,7 +46,8 @@ PTXAS_LOG: Dict[str, str] = {}
 # counts calls of its C entry (a mask and a reduce launch each).
 LAUNCHES: Dict[str, int] = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0,
                             "roi_pool": 0, "roi_pool_bwd": 0, "layer_norm": 0,
-                            "window_attention": 0, "window_gather": 0, "nms": 0}
+                            "window_attention": 0, "window_gather": 0, "nms": 0,
+                            "deform_conv": 0, "deform_conv_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -115,7 +117,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    strided = [P, L, L, L, L, I]  # pointer, 4 element strides, dtype code
     sigs = {
         "roi_pool": {"roi_pool_forward": [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I, I, I, P],
                      "roi_pool_backward": [P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, I,
@@ -131,6 +134,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             "window_attention_forward": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]},
         "window_gather": {"window_gather_forward": [P, P, P, P, I, I, I, I, I, P]},
         "nms": {"nms_forward": [P, P, P, F, I, I, I, P, P, P]},
+        "deform_conv": {"deform_im2col": [P, I, *strided, *strided, P, *[I] * 11, P],
+                        "deform_col2im": [P, I, *strided, *strided, P, P, P, P, *[I] * 11,
+                                          P]},
     }
     for fname, argtypes in sigs[name].items():
         fn = getattr(lib, fname)

@@ -12,7 +12,7 @@ CPU):
   1. build    compile every CUDA kernel from ``afigan_tpu_torch/csrc`` (one nvcc
               per source, in parallel); print the card and its power limit; the
               pool's backward must hold no global atomic in its SASS
-  2. kernels  each of the nine kernels against its plain PyTorch version at
+  2. kernels  each of the eleven kernels against its plain PyTorch version at
               the shapes of the paths that run it (the generator and the pooler
               at 256 and at 160 channels), float32 with TF32 off and
               bfloat16: error, median CUDA-event time of both and of the one
@@ -38,7 +38,15 @@ CPU):
               at P 7, mask pool 2 x 128 at P 14, C 256) against autograd through
               the plain gather, the same bits on a second run, by events (its
               device time is read in phase 10); the plain gradient without one
-              ROI must fail
+              ROI must fail. The deformable conv's sampling
+              (``deform_conv``) and its adjoint (``deform_conv_bwd``) at the six
+              shapes of the ResNeSt-101 cascade's 30 deformable convs (832x1344,
+              batch 2: 208x336x128 down to 26x42x512), bf16 x and offsets (a
+              non-contiguous view, as the model passes them), a float32 mask or
+              none, under fractional, all-zero and integer offsets (samples on
+              rows -1, 0, H-1, H): the columns equal to the plain gather's bit
+              for bit, the three gradients within 1e-4 of their largest entry;
+              kernel, plain and bound ms of the main path's case by events
   3. slice    Mask R-CNN R-50-FPN + AF interpolator at full width (bf16, random
               weights from a seeded torch.Generator) through ``build_model``
               and ``predict`` on random-pixel batches of an 832x1344 canvas;
@@ -103,7 +111,9 @@ CPU):
               the ResNeSt-101-FPN cascade with modulated deformable convs in
               res3-res5 (ResNeSt's public DCN setting; float32 inside the
               deformable conv), full width, bf16, batch 2, the two traffics,
-              5 batches each, launches asserted; one R-18 batch held; the
+              5 batches each, launches asserted (30 ``deform_conv`` a batch of
+              the deformable ResNeSt); one R-18 batch and one deformable batch
+              held (every deformable conv's columns bit for bit); the
               deformable convs' device time and the batch's peak memory in a
               profiled batch
   8. tta      the flagship YAML unchanged (Swin-L + BiFPN x7 + Cascade R-CNN;
@@ -175,6 +185,16 @@ CPU):
               the wait on the loader beside each later step, float32 batches,
               the rare image's repeats, 2 pool launches each way and 2 NMS
               asserted at every step
+ 10i. train_dcn  stage-3 training of 7e's deformable ResNeSt-101-FPN cascade
+              (``MODEL.AFI_FREEZE False``) the same way, full width, bf16, batch
+              2, 832x1344: the first step, from the zero-initialised offset
+              predictors (every sample on a pixel), held against the plain
+              versions (30 ``deform_conv``, 30 ``deform_conv_bwd``, 4 pool
+              launches each way, 2 NMS); every step's launches asserted; the
+              offset predictors and deformable weights moved; then the offset
+              predictors set off zero (``offsets_on``), one more step held and
+              3 steps counted one by one, losses finite; ms a step and peak
+              memory
  10e. train_ddp  data-parallel training through ``engine/launch.py``: two ranks
               spawned on this one card over gloo (``device="cuda:0"``,
               ``backend="gloo"``: NCCL refuses two ranks on one device; gloo
@@ -244,7 +264,7 @@ CPU):
               and the Res5 heads (window_gather and the overflow pool); the
               ProposalNetwork (proposals within 0.05 px, objectness 1e-3), the
               R-18 and a narrow deformable ResNeSt (its offset predictors
-              moved off zero)
+              moved off zero; the sampling kernel launched on the card)
  14. train_card_vs_cpu  one stage-3 step of each of five narrow float32
               models (R-50, CenterMask, the ResNeSt cascade's heads over a
               ResNet-50, the Swin cascade with the same DropPath masks, the
@@ -324,6 +344,12 @@ KERNELS = {
     "roi_pool_bwd": ("afigan_tpu_torch/csrc/roi_pool.cu",
                      "afigan_tpu/ops/roi_align.py:720::_pallas_pool_bwd_dense (XLA adjoint, "
                      "not a Pallas kernel)", "train"),
+    "deform_conv": ("afigan_tpu_torch/csrc/deform_conv.cu",
+                    "afigan_tpu/ops/deform_conv.py:20::deform_conv2d (XLA code, not a "
+                    "Pallas kernel)", "resnest_dcn"),
+    "deform_conv_bwd": ("afigan_tpu_torch/csrc/deform_conv.cu",
+                        "afigan_tpu/ops/deform_conv.py:20::deform_conv2d (its VJP by XLA "
+                        "autodiff, not a Pallas kernel)", "train_dcn"),
 }
 
 # max|kernel - plain| <= rel * max|plain| + abs
@@ -346,6 +372,15 @@ TOL = {
     # a copy has no tolerance
     ("copy", "float32"): (0.0, 0.0),
     ("copy", "bfloat16"): (0.0, 0.0),
+    # the deformable conv's columns: the kernel does the plain gather's float32
+    # arithmetic in its order with no contraction (__f*_rn), so no tolerance
+    ("dcn_fwd", "float32"): (0.0, 0.0),
+    ("dcn_fwd", "bfloat16"): (0.0, 0.0),
+    # its adjoint (float32 out, whatever x's type): x's gradient sums up to
+    # 36 terms an entry in atomics' order, the offsets' and the mask's sum
+    # over the channels in a warp's order, against torch's index_add_ / sum
+    ("dcn_bwd", "float32"): (1e-4, 0.0),
+    ("dcn_bwd", "bfloat16"): (1e-4, 0.0),
 }
 # one bfloat16 launch of the generator against the float32 plain conv on the
 # same bf16 values: the kernel accumulates in float32 and rounds once, so
@@ -701,7 +736,7 @@ def kernels_generator(results):
 
 PORT_KERNELS = ("afi::", "roi_pool_kernel", "layer_norm_kernel", "window_attention_",
                 "window_gather_kernel", "nms_mask_kernel", "nms_reduce_kernel",
-                "roi_pool_bwd_kernel")
+                "roi_pool_bwd_kernel", "deform_im2col_kernel", "deform_col2im_kernel")
 
 
 def device_kernels(counts):
@@ -1452,13 +1487,137 @@ def kernels_nms(results):
                                                           count)
 
 
+# the deformable convs of one batch of the ResNeSt-101 cascade with
+# DEFORM_ON_PER_STAGE [False, True, True, True] at 832x1344 (AVD: each at
+# stride 1 on its block's input map): (map H, W), channels, convs a batch
+DCN_SHAPES = [((208, 336), 128, 1), ((104, 168), 128, 3), ((104, 168), 256, 1),
+              ((52, 84), 256, 22), ((52, 84), 512, 1), ((26, 42), 512, 2)]
+DCN_OFFSETS = ("fractional", "zero", "integer")
+
+
+def dcn_offsets(kind, b, h, w, gen):
+    """(B, H, W, 18) bf16 offsets of a 3x3 at stride 1 and padding 1 (on the
+    CPU, from ``gen``): ``fractional`` (2 N(0, 1), none an integer),
+    ``zero``, or ``integer``: each sample on row -1, 0, H-1 or H (column -1,
+    0, W-1 or W), or with probability 0.4 on an interior pixel; offsets
+    above 256 round to even integers in bf16, still integers."""
+    import torch
+
+    shape = (b, h, w, 18)
+    if kind == "zero":
+        return torch.zeros(shape, dtype=torch.bfloat16)
+    if kind == "fractional":
+        o = (2 * torch.randn(shape, generator=gen)).bfloat16()
+        return torch.where(o == o.round(), o + 0.375, o)
+
+    def land(n, size):
+        border = torch.tensor([-1, 0, size - 1, size])[torch.randint(0, 4, (n,), generator=gen)]
+        inner = torch.randint(1, size - 1, (n,), generator=gen)
+        return torch.where(torch.rand(n, generator=gen) < 0.6, border, inner)
+
+    n = b * h * w * 9
+    ty = land(n, h).reshape(b, h, w, 3, 3)
+    tx = land(n, w).reshape(b, h, w, 3, 3)
+    by = (torch.arange(h)[:, None] - 1 + torch.arange(3))[None, :, None, :, None]
+    bx = (torch.arange(w)[:, None] - 1 + torch.arange(3))[None, None, :, None, :]
+    return torch.stack([ty - by, tx - bx], -1).reshape(shape).bfloat16()
+
+
+def _dcn_work(x, n, c, modulated, backward):
+    """(bytes, float32 operations) that one launch needs: x, the offsets
+    (bf16) and the mask (float32) read once; the forward writes the float32
+    columns (n pixels x 9 taps x c) at 8 operations an entry (7 without the
+    mask: 4 products, 3 sums, the mask's product); the backward reads the
+    columns' gradient and writes x's float32 gradient, the offsets' and the
+    mask's, at 32 operations an entry (22 without the mask)."""
+    cols = n * 9 * c * 4
+    nbytes = x.numel() * x.element_size() + n * 18 * 2 + (n * 9 * 4 if modulated else 0) + cols
+    if not backward:
+        return nbytes, n * 9 * c * (8 if modulated else 7)
+    nbytes += x.numel() * 4 + n * 18 * 4 + (n * 9 * 4 if modulated else 0)
+    return nbytes, n * 9 * c * (32 if modulated else 22)
+
+
+def kernels_deform_conv(results):
+    """The deformable conv's two kernels against their plain versions at the
+    six shapes of ``DCN_SHAPES`` (batch 2, bf16 x, the offsets a bf16 view of
+    a (B, H, W, 27) tensor's first 18 channels, as the model passes them; a
+    float32 sigmoid mask or none), under the three offset sets of
+    ``dcn_offsets``: the columns bit for bit, the three gradients of the
+    adjoint (on a random columns' gradient) within ``TOL["dcn_bwd"]``, whose
+    bound must reject x's gradient taken without the mask. The main path's
+    case (modulated, fractional) timed by events, kernel and
+    plain; the forward into ``resnest_dcn``'s tally, the backward into
+    ``train_dcn``'s, each with its convs a batch."""
+    import torch
+
+    from afigan_tpu_torch.ops.kernels.deform_conv import (deform_col2im, deform_col2im_plain,
+                                                          deform_im2col, deform_im2col_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5)
+    dgen = torch.Generator(device=dev).manual_seed(5)
+    B = 2
+    for (h, w), c, count in DCN_SHAPES:
+        x = torch.randn((B, h, w, c), generator=gen).to(dev, torch.bfloat16)
+        n = B * h * w
+        gcols = torch.randn((n, 9 * c), generator=dgen, device=dev)
+        for modulated in (True, False):
+            mask = (torch.sigmoid(torch.randn((B, h, w, 9), generator=gen)).to(dev)
+                    if modulated else None)
+            for kind in DCN_OFFSETS:
+                pred = torch.zeros((B, h, w, 27), dtype=torch.bfloat16, device=dev)
+                pred[..., :18] = dcn_offsets(kind, B, h, w, gen).to(dev)
+                off = pred[..., :18]
+                tag = f"{h}x{w}x{c} {'modulated' if modulated else 'unmodulated'} {kind}"
+                fk = lambda: deform_im2col(x, off, mask)  # noqa: E731
+                fp = lambda: deform_im2col_plain(x, off, mask)  # noqa: E731
+                bk = lambda: deform_col2im(gcols, x, off, mask)  # noqa: E731
+                bp = lambda: deform_col2im_plain(gcols, x, off, mask)  # noqa: E731
+                e_f = compare(f"deform_conv {tag} columns", fk(), fp(), "dcn_fwd", "bfloat16",
+                              quiet=True)
+                got, want = bk(), bp()
+                torch.cuda.synchronize()
+                e_b = 0.0
+                for name, g_k, g_p in zip(("x", "offsets", "mask"), got, want):
+                    if g_p is None:
+                        if g_k is not None:
+                            raise AssertionError(f"deform_conv_bwd {tag}: a mask gradient")
+                        continue
+                    e_b = max(e_b, compare(f"deform_conv_bwd {tag} grad_{name}", g_k, g_p,
+                                           "dcn_bwd", "bfloat16", quiet=True))
+                msg = (f"  deform_conv {tag}: columns equal bit for bit; adjoint max_abs_err "
+                       f"{e_b:.3e}")
+                if modulated and kind == "fractional":
+                    # the bound must reject x's gradient with the mask left out
+                    reject(f"deform_conv_bwd {tag} grad_x without the mask",
+                           deform_col2im_plain(gcols, x, off, None)[0], want[0], "dcn_bwd",
+                           "bfloat16")
+                    tk, tp = median_ms(fk), median_ms(fp, iters=3, warmup=1, inner=1)
+                    tbk, tbp = median_ms(bk), median_ms(bp, iters=3, warmup=1, inner=1)
+                    wf, wb = _dcn_work(x, n, c, True, False), _dcn_work(x, n, c, True, True)
+                    bf = 1000 * max(wf[0] / HBM_BYTES_PER_S, wf[1] / PEAK_OPS_PER_S["float32"])
+                    bb = 1000 * max(wb[0] / HBM_BYTES_PER_S, wb[1] / PEAK_OPS_PER_S["float32"])
+                    msg += (f"; forward kernel {tk:.3f} ms plain {tp:.3f} ms bound {bf:.3f} ms, "
+                            f"backward kernel {tbk:.3f} ms plain {tbp:.3f} ms bound {bb:.3f} ms "
+                            f"(x{count} a batch)")
+                    tally(results, "deform_conv", "resnest_dcn", "bfloat16").add(
+                        tk, tp, *wf, "float32", e_f, count)
+                    tally(results, "deform_conv_bwd", "train_dcn", "bfloat16").add(
+                        tbk, tbp, *wb, "float32", e_b, count)
+                log(msg)
+                del got, want, pred, off
+        del x, gcols
+        torch.cuda.empty_cache()
+
+
 @tf32_off()
 def phase_kernels(results):
     import torch
 
     for part in (kernels_generator, kernels_roi_pool, kernels_roi_pool_backward,
                  kernels_layer_norm, kernels_window_attention, kernels_window_gather,
-                 kernels_nms):
+                 kernels_nms, kernels_deform_conv):
         part(results)
         torch.cuda.empty_cache()
     generator_levels()
@@ -1623,24 +1782,25 @@ def run_slice(results, path, make_cfg, canvas, per_batch, n_batches):
 # chain + 3 upsample launches a call (3 calls on the FPN, 28 on the BiFPN),
 # the pooler one launch a call; NMS one call per image for the proposals and
 # one for the detections (FCOS: one in all)
+NO_DCN = {"deform_conv": 0, "deform_conv_bwd": 0}
 R50_PER_BATCH = {"afi_chain": 3 * 16, "afi_upsample": 3 * 3, "roi_pool": 2,
                  "roi_pool_bwd": 0, "afi_rdb": 0, "layer_norm": 0, "window_attention": 0,
-                 "window_gather": 0, "nms": 4}
+                 "window_gather": 0, "nms": 4, **NO_DCN}
 SWIN_PER_BATCH = {"afi_chain": 28 * 16, "afi_upsample": 28 * 3, "roi_pool": 3,
                   "roi_pool_bwd": 0, "afi_rdb": 0, "layer_norm": 55, "window_attention": 24,
-                  "window_gather": 0, "nms": 4}
+                  "window_gather": 0, "nms": 4, **NO_DCN}
 # with one dense block: the head conv + 5 dense convs a call, all launches
 # of the conv kernel, counted as afi_rdb
 RDB1_PER_BATCH = {"afi_chain": 0, "afi_upsample": 3 * 3, "roi_pool": 2,
                   "roi_pool_bwd": 0, "afi_rdb": 3 * 6, "layer_norm": 0, "window_attention": 0,
-                  "window_gather": 0, "nms": 4}
+                  "window_gather": 0, "nms": 4, **NO_DCN}
 # CenterMask: 6 BiFPN layers x 4 generator calls; one mask pool a batch. Under
 # ``windowed`` the pool is one window_gather launch (the batch's ROIs in one)
 # and one roi_pool launch over the 64 overflow slots per image, which runs
 # whether or not a ROI overflows (fixed shapes, no device synchronisation)
 CENTERMASK_PER_BATCH = {"afi_chain": 24 * 16, "afi_upsample": 24 * 3, "roi_pool": 1,
                         "roi_pool_bwd": 0, "afi_rdb": 0, "layer_norm": 0, "window_attention": 0,
-                        "window_gather": 0, "nms": 2}
+                        "window_gather": 0, "nms": 2, **NO_DCN}
 CENTERMASK_WINDOWED_PER_BATCH = dict(CENTERMASK_PER_BATCH, window_gather=1)
 
 
@@ -1964,12 +2124,14 @@ class HeldKernels:
     compared: the tolerances of TOL (NMS entry for entry, up to the walk's
     stop). With ``backward``, the pool's backward too (``roi_pool_bwd``):
     every level's gradient, all levels scaled by the largest entry of the
-    incoming gradient, as ``check_train_pool_backward`` scales it. The plain
-    calls launch nothing."""
+    incoming gradient, as ``check_train_pool_backward`` scales it. The
+    deformable conv's sampling always (its columns bit for bit), with
+    ``backward`` its adjoint too (each of its three gradients within
+    ``TOL["dcn_bwd"]``). The plain calls launch nothing."""
 
     KINDS = {"afi_chain": "gen", "afi_upsample": "gen", "roi_pool": "pool",
              "roi_pool_bwd": "pool", "layer_norm": "ln", "window_attention": "attn",
-             "window_gather": "copy"}
+             "window_gather": "copy", "deform_conv": "dcn_fwd"}
 
     def __init__(self, dtype_name, backward=False, windows=False):
         self.dtype_name = dtype_name
@@ -2004,6 +2166,10 @@ class HeldKernels:
                     raise AssertionError("window_gather: the kernel's windows differ from "
                                          "the plain slices")
                 err = 0.0
+            elif name == "deform_conv_bwd":  # (grad_x, grad_offsets, grad_mask or None)
+                err = max(compare(f"{name} held {i}", g, w, "dcn_bwd", self.dtype_name,
+                                  quiet=True) for i, (g, w) in enumerate(zip(got, want))
+                          if w is not None)
             elif name == "roi_pool_bwd":
                 top = float(a[3].abs().max())
                 if top > 0:
@@ -2045,7 +2211,15 @@ class HeldKernels:
             "window_attention", window_attention.fused_window_attention,
             window_attention.fused_window_attention_plain)
         nms.nms_keep_sorted = self._held("nms", nms.nms_keep_sorted, nms_keep_sorted_plain)
+        from afigan_tpu_torch.ops.kernels import deform_conv
+
+        self._saved.append((deform_conv, "deform_im2col", deform_conv.deform_im2col))
+        deform_conv.deform_im2col = self._held("deform_conv", deform_conv.deform_im2col,
+                                               deform_conv.deform_im2col_plain)
         if self.backward:
+            self._saved.append((deform_conv, "deform_col2im", deform_conv.deform_col2im))
+            deform_conv.deform_col2im = self._held("deform_conv_bwd", deform_conv.deform_col2im,
+                                                   deform_conv.deform_col2im_plain)
             self._saved.append((roi_pool, "roi_pool_backward", roi_pool.roi_pool_backward))
             roi_pool.roi_pool_backward = self._held("roi_pool_bwd", roi_pool.roi_pool_backward,
                                                     roi_pool.roi_pool_backward_plain)
@@ -2464,7 +2638,7 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # an image; no generator kernel (training takes the unfused route)
 TRAIN_PER_STEP = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0, "roi_pool": 2,
                   "roi_pool_bwd": 2, "layer_norm": 0, "window_attention": 0,
-                  "window_gather": 0, "nms": 2}
+                  "window_gather": 0, "nms": 2, "deform_conv": 0, "deform_conv_bwd": 0}
 # CenterMask: the mask pool forward and backward at 160 channels, one FCOS
 # decode NMS call an image (the mask branch's proposals)
 CENTERMASK_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, roi_pool=1, roi_pool_bwd=1)
@@ -3050,23 +3224,39 @@ def deform_profile(model, batch):
     n = sum(isinstance(m, DeformConv) for m in model.modules())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        predict(model, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    for session in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            predict(model, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        sampling = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and "deform_im2col_kernel" in e.key]
+        if sum(e.count for e in sampling) == n:
+            break
+        log(f"  resnest_dcn profile: session {session + 1} of 3 holds "
+            f"{sum(e.count for e in sampling)} of the batch's {n} sampling launches")
     peak = torch.cuda.max_memory_allocated() / 2**30
     calls = sum(1 for e in prof.events()
                 if e.name == "deform_conv" and e.device_type == DeviceType.CPU)
     ms = range_device_ms(prof, ("deform_conv",))
     busy = sum(ms.values())
+    kernel_ms = sum(e.self_device_time_total for e in sampling) / 1000.0
     if calls != n or ms["deform_conv"] <= 0:
         raise AssertionError(f"deform profile: {calls} deform_conv ranges of {n} modules, "
                              f"{ms['deform_conv']} ms")
     log(f"  resnest_dcn profile: the {n} deformable convs {ms['deform_conv']:.2f} ms on the "
-        f"device ({100 * ms['deform_conv'] / max(busy, 1e-9):.1f} % of the batch's "
-        f"{busy:.1f} ms busy; wall {1000 * wall:.1f} ms, profiler on); peak memory of the "
-        f"batch {peak:.2f} GiB")
+        f"device (their deform_conv ranges; the plain torch gather took 63.83 ms there on "
+        f"an NVIDIA H100 80GB HBM3 at 700 W), "
+        f"{100 * ms['deform_conv'] / max(busy, 1e-9):.1f} % of the batch's "
+        f"{busy:.1f} ms busy; of it the sampling kernel {kernel_ms:.2f} ms in "
+        f"{sum(e.count for e in sampling)} launches; wall {1000 * wall:.1f} ms, profiler on; "
+        f"peak memory of the batch {peak:.2f} GiB")
+
+
+DCN_YAML = "inference/AFI-GAN_cascade_mask_rcnn_ResNeSt101_FPN.yaml"
+DCN_EDITS = ["MODEL.RESNETS.DEFORM_ON_PER_STAGE", "[False, True, True, True]",
+             "MODEL.RESNETS.DEFORM_MODULATED", "True"]
 
 
 def dcn_cfg():
@@ -3075,10 +3265,16 @@ def dcn_cfg():
     res3-res5."""
     from afigan_tpu_torch.config import cfg_from_yaml
 
-    cfg = cfg_from_yaml("inference/AFI-GAN_cascade_mask_rcnn_ResNeSt101_FPN.yaml")
-    cfg.merge_from_list(["MODEL.RESNETS.DEFORM_ON_PER_STAGE", "[False, True, True, True]",
-                         "MODEL.RESNETS.DEFORM_MODULATED", "True"])
+    cfg = cfg_from_yaml(DCN_YAML)
+    cfg.merge_from_list(list(DCN_EDITS))
     return cfg
+
+
+# a batch of the deformable ResNeSt cascade: one sampling launch a
+# deformable conv (4 blocks of res3, 23 of res4, 3 of res5)
+RESNEST_DCN_PER_BATCH = dict(RESNEST_PER_BATCH, deform_conv=30)
+RESNEST_DCN_HELD = {"afi_chain": 3, "afi_upsample": 3, "roi_pool": 4, "nms": 4,
+                    "deform_conv": 30}
 
 
 def r18_cfg():
@@ -3109,15 +3305,17 @@ def phase_slice_backbones(results, n_batches=5):
     cfg = dcn_cfg()
     canvas = choose_bucket(max(h for h, _ in SIZES), max(w for _, w in SIZES),
                            cfg.TPU.IMAGE_BUCKETS, required_size_divisibility(cfg))
-    model, batch = run_slice(results, "resnest_dcn", dcn_cfg, canvas, RESNEST_PER_BATCH,
+    model, batch = run_slice(results, "resnest_dcn", dcn_cfg, canvas, RESNEST_DCN_PER_BATCH,
                              n_batches)
+    held_batch("resnest_dcn", model, batch, RESNEST_DCN_HELD)
     deform_profile(model, batch)
     del model
     torch.cuda.empty_cache()
 
 
 def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=None,
-                verify=None, after=None, keypoints=0, held_backward=False):
+                verify=None, after=None, keypoints=0, held_backward=False, first=None,
+                more=None):
     """Stage-3 training at full width through ``TargetDetectorTrainer``: two
     iterations of ``train()`` over an in-memory dataset (mapper, loader,
     hooks, a checkpoint), then the main path: ``TRAIN_WARMUP`` + ``TRAIN_TIMED``
@@ -3139,7 +3337,12 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     metrics)``: checks after them; ``after(path, model, inputs, results)``:
     run last, on the trained model. ``keypoints``: COCO keypoints an object
     in the records (one class, the dataset's flip permutation);
-    ``held_backward``: the held step holds the pool's backward too."""
+    ``held_backward``: the held step holds the pool's backward too (and the
+    deformable conv's adjoint). ``first(path, step, model)``: run before
+    ``train()`` on the seeded model; ``more(path, step, model)``: run after
+    the pool's backward was captured, before ``after``; ``step()`` is one
+    train step of the trainer's state on the repeated batch. Every step's
+    launches are counted on their own."""
     import json as _json
     import shutil
     import types
@@ -3180,6 +3383,12 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
         prepare(trainer.model)
     inputs = batch_to_device(batch, "cuda")
     n_bn = calibrate_frozen_bn(trainer.model, inputs["image"])
+
+    def step():
+        return train_step(cfg, trainer.state, inputs, trainer.sampling, trainer.drop_path)
+
+    if first is not None:
+        first(path, step, trainer.model)
     trainer.train()
     lines = [_json.loads(x) for x in open(out_dir / "metrics.json")]
     if not (out_dir / "model_0000002.pth").is_file() or not all(
@@ -3197,16 +3406,20 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
               if verify is not None else None)
     drop = DropPathRecord(trainer.drop_path)
     reset_launches()
-    steps, ms, ev = timed_steps(
-        lambda: train_step(cfg, trainer.state, inputs, trainer.sampling, drop))
+    each = []  # every step's own launches
+
+    def counted():
+        was = dict(LAUNCHES)
+        out = train_step(cfg, trainer.state, inputs, trainer.sampling, drop)
+        each.append({k: LAUNCHES[k] - was[k] for k in LAUNCHES})
+        return out
+
+    steps, ms, ev = timed_steps(counted)
     counts = dict(LAUNCHES)
     n = len(steps)
     if verify is not None:
         verify(path, trainer.model, before, steps)
         del before
-
-    def step():
-        return train_step(cfg, trainer.state, inputs, trainer.sampling, trainer.drop_path)
 
     if any(m.rate > 0 for m in trainer.model.modules() if isinstance(m, DropPath)):
         draws = len(drop.masks) // n  # a step's DropPath calls, each one keep an image
@@ -3221,9 +3434,9 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     bounds.log(f"{path}, one step")
     log(f"  {path}: launches in {n} steps " + _json.dumps(counts))
     for k, per in per_step.items():
-        if counts[k] != per * n:
-            raise AssertionError(f"{path}: {counts[k]} launches of {k} in {n} steps, expected "
-                                 f"{per} per step")
+        if counts[k] != per * n or any(c[k] != per for c in each):
+            raise AssertionError(f"{path}: {[c[k] for c in each]} launches of {k} in the {n} "
+                                 f"steps, expected {per} at every step")
     for i, m in enumerate(steps):
         if not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"{path} step {i}: a non-finite loss {m}")
@@ -3239,7 +3452,7 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
         f"{canvas[0]}x{canvas[1]} canvas, bf16, lr {TRAIN_LR}, {n_gt} GT boxes; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for k in ("roi_pool", "roi_pool_bwd", "nms", "layer_norm", "window_attention",
-              "window_gather"):
+              "window_gather", "deform_conv", "deform_conv_bwd"):
         results[k].setdefault("launches", {})[path] = counts[k] // n
     # one step with every pooler and NMS launch held against its plain
     # version on the launch's own inputs (the pool's backward: below)
@@ -3247,8 +3460,7 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     with HeldKernels("bfloat16", backward=held_backward, windows=windows) as held, \
             SampledROIs(inputs["gt"].valid.shape[1]) as rois:
         step()
-    want = {k: per_step[k] for k in ("roi_pool", "nms", "window_gather")
-            + (("roi_pool_bwd",) if held_backward else ()) if per_step[k]}
+    want = held_want(per_step, held_backward)
     if held.calls != want:
         raise AssertionError(f"{path}: held {held.calls} launches, expected {want}")
     log(f"  {path}: one step's launches held against their plain versions: " + ", ".join(
@@ -3280,7 +3492,7 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     busy = sum(e.self_device_time_total for e in kernels) / 1000.0
     log(f"  {path} profile: wall {1000 * wall:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / (1000 * wall):.1f} % of wall)")
-    route = route_device_ms(prof, SWIN_ROUTE_RANGES)
+    route = route_device_ms(prof, SWIN_ROUTE_RANGES + ("deform_conv",))
     for name, (f_ms, b_ms, launched) in route.items():
         if launched:
             log(f"  {path} profile: training route {name}: forward {f_ms:.3f} ms, backward "
@@ -3289,7 +3501,7 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} {e.key[:90]}")
     for e in kernels:
-        if any(k in e.key for k in ("roi_pool", "nms_")):
+        if any(k in e.key for k in ("roi_pool", "nms_", "deform_")):
             log(f"  port kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} "
                 f"{e.key[:90]}")
     # the pool's backward launch by launch, in the order autograd ran them
@@ -3314,12 +3526,125 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     if path == "train":
         save_pool_calls(calls, POOL_CALLS)
         log(f"  train: the step's {len(calls)} pool backward calls saved to {POOL_CALLS}")
+    if more is not None:
+        more(path, step, trainer.model)
     if after is not None:
         after(path, trainer.model, inputs, results)
     del trainer, inputs, step
     check_train_pool_backward(results, calls, path, pool_sizes)
     del calls
     torch.cuda.empty_cache()
+
+
+def held_want(per_step, backward):
+    """The kernel calls that ``HeldKernels`` holds in one train step of
+    ``per_step``: the pool, NMS, window copy and deformable sampling; with
+    ``backward`` the pool's backward and the deformable adjoint too."""
+    kinds = ("roi_pool", "nms", "window_gather", "deform_conv")
+    if backward:
+        kinds += ("roi_pool_bwd", "deform_conv_bwd")
+    return {k: per_step[k] for k in kinds if per_step[k]}
+
+
+# a step of the deformable cascade: the cascade's pools and NMS, one
+# sampling launch a deformable conv forward and one adjoint launch backward
+DCN_TRAIN_PER_STEP = dict(CASCADE_TRAIN_PER_STEP, deform_conv=30, deform_conv_bwd=30)
+DCN_MORE_STEPS = 3
+
+
+def dcn_train_cfg(out_dir):
+    """``dcn_cfg``'s model (the ResNeSt-101-FPN cascade, modulated deformable
+    convs in res3-res5) with the AF interpolator trained (``MODEL.AFI_FREEZE
+    False``); otherwise ``train_cfg``'s."""
+    return train_cfg(out_dir, DCN_YAML, "MODEL.AFI_FREEZE", "False", *DCN_EDITS)
+
+
+def dcn_held_step(path, what, step):
+    """One step under ``HeldKernels`` (bf16, the backward too): the calls
+    held must be a whole ``DCN_TRAIN_PER_STEP`` step; the metrics."""
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    with HeldKernels("bfloat16", backward=True) as held:
+        m = step()
+    want = held_want(DCN_TRAIN_PER_STEP, True)
+    if held.calls != want or any(LAUNCHES[k] != n for k, n in DCN_TRAIN_PER_STEP.items()):
+        raise AssertionError(f"{path} {what}: held {held.calls}, launches {dict(LAUNCHES)}, "
+                             f"expected {want}")
+    if not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"{path} {what}: a non-finite loss {m}")
+    log(f"  {path} {what}: launches held against their plain versions: " + ", ".join(
+        f"{k} x{n} max_abs_err {held.err[k]:.3e}" for k, n in held.calls.items())
+        + f"; total_loss {m['total_loss']:.4f}")
+    return m
+
+
+def dcn_first_step(path, step, model):
+    """The first step, from the zero-initialised offset predictors (every
+    sample on a pixel, where the offsets' gradient is the forward
+    difference): held; after it every offset predictor has moved."""
+    preds = {k: p for k, p in model.named_parameters() if k.endswith("conv2_offset.weight")}
+    if len(preds) != DCN_TRAIN_PER_STEP["deform_conv"] or any(
+            bool(p.detach().any()) for p in preds.values()):
+        raise AssertionError(f"{path}: {len(preds)} offset predictors, not all zero at init")
+    dcn_held_step(path, "first step (offset predictors at zero)", step)
+    still = [k for k, p in preds.items() if not p.detach().any()]
+    if still:
+        raise AssertionError(f"{path}: offset predictors still zero after a step {still[:4]}")
+
+
+def dcn_verify(path, model, before, steps):
+    """After the timed steps: every deformable conv's weight and offset
+    predictor moved."""
+    import torch
+
+    after = model.state_dict()
+    names = [k for k in after if k.endswith(("conv2_offset.weight", "conv2_offset.bias"))
+             or (k.endswith("conv2.weight") and k[:-len("conv2.weight")] + "conv2_offset.weight"
+                 in after)]
+    still = [k for k in names if torch.equal(after[k], before[k])]
+    if len(names) != 3 * DCN_TRAIN_PER_STEP["deform_conv"] or still:
+        raise AssertionError(f"{path}: {len(names)} deformable parameters, unmoved {still[:4]}")
+    log(f"  {path}: the {len(names) // 3} deformable convs' weights and offset predictors "
+        f"(weight and bias) moved")
+
+
+def dcn_offsets_on(path, step, model):
+    """The offset predictors set off zero (``offsets_on``: taps moved by a
+    few pixels, samples between pixels), one step held, then
+    ``DCN_MORE_STEPS`` steps with their launches counted one by one: losses
+    finite, ms a step (host clock to a synchronize), peak memory."""
+    import torch
+
+    from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    offsets_on(model)
+    dcn_held_step(path, "step after offsets_on", step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for i in range(DCN_MORE_STEPS):
+        reset_launches()
+        t0 = time.perf_counter()
+        m = step()
+        torch.cuda.synchronize()
+        ms.append(1000 * (time.perf_counter() - t0))
+        wrong = {k: LAUNCHES[k] for k, n in DCN_TRAIN_PER_STEP.items() if LAUNCHES[k] != n}
+        if wrong or not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{path} step {i} after offsets_on: launches {wrong}, "
+                                 f"metrics {m}")
+        losses.append(m["total_loss"])
+    log(f"  {path} after offsets_on: {DCN_MORE_STEPS} steps, {DCN_TRAIN_PER_STEP['deform_conv']} "
+        f"deform_conv and {DCN_TRAIN_PER_STEP['deform_conv_bwd']} deform_conv_bwd launches each; "
+        f"ms a step {', '.join(f'{t:.1f}' for t in ms)}; total_loss "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def phase_train_dcn(results):
+    train_phase(results, "train_dcn", dcn_train_cfg, R50_CANVAS, DCN_TRAIN_PER_STEP,
+                (7, 7, 7, 14), verify=dcn_verify, held_backward=True, first=dcn_first_step,
+                more=dcn_offsets_on)
 
 
 def proposal_train_cfg(out_dir):
@@ -4991,7 +5316,7 @@ def phase_card_vs_cpu(results):
          ("roi_pool", "afi_chain", "afi_upsample", "nms"))
     need(card_vs_cpu("narrow resnest dcn", narrow_dcn_cfg(), (128, 256), (120, 250),
                      prepare=offsets_on), "deformable ResNeSt",
-         ("roi_pool", "afi_chain", "afi_upsample", "nms"))
+         ("roi_pool", "afi_chain", "afi_upsample", "nms", "deform_conv"))
 
 
 # ---------------------------------------------------------------------------
@@ -5497,6 +5822,7 @@ def main():
                         ("train_keypoint", phase_train_keypoint),
                         ("train_proposals", phase_train_proposals),
                         ("train_aug", phase_train_aug),
+                        ("train_dcn", phase_train_dcn),
                         ("train_ddp", phase_train_ddp),
                         ("stage1", phase_stage1), ("stage2", phase_stage2),
                         ("stage2_fcos", phase_stage2_fcos),

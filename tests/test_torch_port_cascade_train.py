@@ -49,6 +49,20 @@ images and by 1e-5 under 1e-6. The predictors, the mask head and the RPN
 head hold PR 7's bound; the test prints the tensors that needed the spread.
 (The head alone, on equal features, holds PR 7's bound everywhere: (a).)
 
+(b2) The same step over the cascade YAML's ResNeSt with ResNeSt's public
+DCN setting, modulated deformable convs in res3-res5 (the 13 blocks of depth
+50), at radix 1 with the deep stem, AVD and the average-pooled shortcut set
+explicitly (radix 2 puts the split attention's ``bn1`` back into res2, and
+(b)'s cancellation with it), on ``step_batch`` with full GT masks
+(``dcn_step_batch``), twice: with the offset predictors as initialised
+(zero: every sample on a pixel, where the offsets' gradient is the forward
+difference) and with their weights moved off zero. Every loss at 1e-4
+relative, the gradients up to the ROI heads by (b)'s rule, the deformable
+convs' (offset predictors and weights) among them and non-zero; every
+parameter and statistic after the step as in (b). The deformable conv runs through ``DeformConv2dFunction`` (the plain
+sampling, the products, the plain adjoint), which the card shares with
+the kernels.
+
 (c) ``SplAtConv2d`` (radix 2, cardinality 1 and 2), the bottleneck (AVD,
 average-pooled shortcut) and the deep stem in training mode against the
 flax modules, eagerly, on two images the second of which is offset by a
@@ -356,15 +370,23 @@ def _port_step(cfg, state, batch, scale=1.0):
 
 @functools.lru_cache(maxsize=None)
 def _step_runs():
+    return _steps(STEP_EXTRA)
+
+
+def _steps(extra, prepare=None, batch=None):
     """The port's step and ``make_stage3_train_step`` from one set of
-    weights: (port state dict before, port metrics, port gradients, port
-    state dict after, JAX metrics, JAX gradients, JAX state dict after, the
-    port's gradients with the images scaled by 1 + each of ``SPREAD_SCALES``)."""
-    jcfg, cfg = cascade_cfgs(STEP_EXTRA)
-    batch = step_batch()
+    weights (``prepare``: a change to the port's state dict before both take
+    it) on ``batch`` (``step_batch()`` by default): (port state dict before,
+    port metrics, port gradients, port state dict after, JAX metrics, JAX
+    gradients, JAX state dict after, the port's gradients with the images
+    scaled by 1 + each of ``SPREAD_SCALES``)."""
+    jcfg, cfg = cascade_cfgs(extra)
+    batch = step_batch() if batch is None else batch
     state = stage3.init_stage3_state(cfg, device="cpu",
                                      generator=torch.Generator().manual_seed(0))
     _perturb(state.model.state_dict(), 0)
+    if prepare is not None:
+        prepare(state.model.state_dict())
     before = {k: v.numpy().copy() for k, v in state.model.state_dict().items()}
 
     det = jax_build_model(jcfg, train=True)
@@ -415,13 +437,12 @@ def test_cascade_step_losses_equal_jax(name):
         assert got[name] > 0
 
 
-def test_cascade_step_gradients_equal_jax():
-    _, _, grads, _, _, jgrads, _, spread = _step_runs()
-    for part in ("bottom_up.res3.0.conv2.norm.weight", "bottom_up.res5.2.conv3.weight",
-                 "pafpn_output3.norm.weight", "srf_module.Generators.0.0.0.weight",
-                 "box_head.2.conv4.norm.weight", "box_predictor.1.bbox_pred.weight",
-                 "mask_head.mask_fcn4.norm.weight", "rpn_head.conv.weight"):
-        assert any(n.endswith(part) for n in grads), part
+def _assert_step_grads_equal(grads, jgrads, spread):
+    """Each trainable gradient at 1e-3 of its largest entry (or 1e-5 of the
+    largest of all), or where the port's own gradient moves past that bound
+    under a change of the images' scale, at ``SPREAD_CAP``; the heads that
+    the loss reaches first at the first bound.
+    Returns {name: note} of the gradients held to the cap."""
     assert not any(".stem." in n or ".res2." in n for n in grads)
     assert set(grads) <= set(jgrads)
     top = max(float(np.abs(jgrads[n]).max()) for n in grads)
@@ -443,10 +464,23 @@ def test_cascade_step_gradients_equal_jax():
     # the heads that the loss reaches first hold PR 7's bound
     assert not any(n.startswith(("roi_heads.box_predictor", "roi_heads.mask_head",
                                  "proposal_generator")) for n in spread_used), spread_used
+    return spread_used
 
 
-def test_cascade_step_parameters_and_statistics_equal_jax():
-    before, _, grads, after, _, _, want, _ = _step_runs()
+def test_cascade_step_gradients_equal_jax():
+    _, _, grads, _, _, jgrads, _, spread = _step_runs()
+    for part in ("bottom_up.res3.0.conv2.norm.weight", "bottom_up.res5.2.conv3.weight",
+                 "pafpn_output3.norm.weight", "srf_module.Generators.0.0.0.weight",
+                 "box_head.2.conv4.norm.weight", "box_predictor.1.bbox_pred.weight",
+                 "mask_head.mask_fcn4.norm.weight", "rpn_head.conv.weight"):
+        assert any(n.endswith(part) for n in grads), part
+    _assert_step_grads_equal(grads, jgrads, spread)
+
+
+def _assert_step_state_equal(before, grads, after, want):
+    """After the SGD step: every parameter at 1e-6 absolute, every running
+    statistic (the frozen stem's and res2's, which still train theirs) at
+    1e-6 absolute plus 1e-5 relative, the frozen parameters bit for bit."""
     assert set(after) == set(want)
     stats = [k for k in after if "running_" in k]
     frozen = [k for k in after if k not in stats and (".stem." in k or ".res2." in k)]
@@ -463,6 +497,114 @@ def test_cascade_step_parameters_and_statistics_equal_jax():
             np.testing.assert_allclose(v, want[k], rtol=0, atol=1e-6, err_msg=k)
             if not np.array_equal(v, before[k]):
                 assert k in grads, k
+
+
+def test_cascade_step_parameters_and_statistics_equal_jax():
+    before, _, grads, after, _, _, want, _ = _step_runs()
+    _assert_step_state_equal(before, grads, after, want)
+
+
+# ---------------------------------------------------------------------------
+# (b2) one whole step of the cascade over the deformable ResNeSt
+# ---------------------------------------------------------------------------
+
+# the cascade YAML's own ResNeSt bottom-up with ResNeSt's public DCN setting,
+# modulated deformable 3x3 convs in res3-res5 (chip_smoke.py's
+# narrow_dcn_cfg): their conv2 is the deformable conv, so the split
+# attention's bn1 (see (b)) is left only in the frozen res2
+DCN_EXTRA = ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", "[False, True, True, True]",
+             "MODEL.RESNETS.DEFORM_MODULATED", "True", "MODEL.RESNETS.RADIX", "1",
+             "MODEL.RESNETS.DEEP_STEM", "True", "MODEL.RESNETS.AVD", "True",
+             "MODEL.RESNETS.AVG_DOWN", "True")
+DCN_PARAMS = ("conv2_offset.weight", "conv2_offset.bias", "conv2.weight")
+
+
+def _offsets_at_zero(state_dict):
+    """The offset predictors as initialised (weight and bias zero: every
+    sample on a pixel, the mask 0.5): ``_perturb`` moved their biases."""
+    with torch.no_grad():
+        for k, v in state_dict.items():
+            if ".conv2_offset." in k:
+                v.zero_()
+
+
+def _offsets_moved(state_dict):
+    """The offset predictors' weights at a seeded scale that moves the taps
+    by a fraction of a pixel to a few pixels (their biases as ``_perturb``
+    left them)."""
+    rs = np.random.RandomState(12)
+    with torch.no_grad():
+        for k, v in state_dict.items():
+            if k.endswith("conv2_offset.weight"):
+                v.copy_(torch.from_numpy(0.05 * rs.randn(*v.shape).astype(np.float32)))
+
+
+DCN_OFFSETS = {"zero": _offsets_at_zero, "moved": _offsets_moved}
+
+
+def dcn_step_batch():
+    """``step_batch`` with every GT mask full. Its random binary masks,
+    resampled to the ROIs, give mask targets on the 0.5 threshold, which the
+    two frameworks' ROIs (1e-5 apart over this bottom-up) split differently:
+    the mask predictor's gradient then moves by 2 % between them while the
+    port's own spread is 3e-5. Full masks leave the mask head at 1e-6."""
+    batch = step_batch()
+    batch["gt"]["masks"] = np.ones_like(batch["gt"]["masks"])
+    return batch
+
+
+@functools.lru_cache(maxsize=None)
+def _dcn_step_runs(offsets):
+    return _steps(DCN_EXTRA, DCN_OFFSETS[offsets], dcn_step_batch())
+
+
+def _dcn_params(names):
+    return sorted(n for n in names if ".bottom_up.res" in n and n.endswith(DCN_PARAMS)
+                  and ".conv2.conv." not in n)
+
+
+@pytest.mark.parametrize("name", STEP_LOSSES)
+@pytest.mark.parametrize("offsets", list(DCN_OFFSETS))
+def test_dcn_cascade_step_losses_equal_jax(offsets, name):
+    _, got, _, _, want, _, _, _ = _dcn_step_runs(offsets)
+    assert set(got) == set(want) == set(STEP_LOSSES)
+    assert np.isfinite(got[name])
+    np.testing.assert_allclose(got[name], want[name], rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("offsets", list(DCN_OFFSETS))
+def test_dcn_cascade_step_gradients_equal_jax(offsets):
+    """The gradients up to the ROI heads (the bottom-up, the pyramid, the AF
+    interpolator, the RPN head) by (b)'s rule, the 13 deformable convs'
+    offset predictors (weight and bias) and weights among them, each
+    non-zero: at zero offsets too, where the offsets' gradient is the
+    forward difference of the map. (b)'s rule and not its first bound alone:
+    at the suite's two torch threads the port's own gradients of the moved
+    offsets' bottom-up move by 1-24 % of their largest entry under the
+    image scales (a sample lies 3.4e-5 from an integer coordinate, where the
+    bilinear form's slope jumps, and the 1 + 1e-4 scale can carry it
+    across), and JAX's lie 1.0-2.3e-3 from the port's there. The ROI heads' gradients are (a)'s
+    and (b)'s subject: at zero offsets one input of stage 0's ``fc1`` ReLU
+    lies 6.5e-6 from zero, inside the two frameworks' 1e-5 difference and
+    outside the port's own spread, and moves ``fc1.bias``'s gradient by
+    1.8 %."""
+    before, _, grads, _, _, jgrads, _, spread = _dcn_step_runs(offsets)
+    dcn = _dcn_params(grads)
+    assert len(dcn) == 3 * 13, dcn  # res3-res5 of the depth-50 ResNeSt: 4 + 6 + 3 blocks
+    offset_weights = [n for n in before if n.endswith("conv2_offset.weight")]
+    assert any(before[n].any() for n in offset_weights) == (offsets == "moved")
+    before_heads = {n: g for n, g in grads.items() if not n.startswith("roi_heads.")}
+    assert any(n.startswith("proposal_generator.") for n in before_heads)
+    _assert_step_grads_equal(before_heads, jgrads, spread)
+    assert all(np.abs(jgrads[n]).max() > 0 and np.abs(grads[n]).max() > 0 for n in dcn)
+
+
+@pytest.mark.parametrize("offsets", list(DCN_OFFSETS))
+def test_dcn_cascade_step_parameters_and_statistics_equal_jax(offsets):
+    before, _, grads, after, _, _, want, _ = _dcn_step_runs(offsets)
+    _assert_step_state_equal(before, grads, after, want)
+    moved = [n for n in _dcn_params(after) if not np.array_equal(after[n], before[n])]
+    assert len(moved) == 3 * 13, moved
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,12 @@ same bits. The NMS kernel must equal the blocked plain loop on the card
 entry for entry (``nms_padded`` / ``batched_nms_padded`` outputs, the keep
 mask up to the ``max_out``-th kept box) at the main paths' sizes (RPN 4819,
 FCOS 5000, detection 4096), ties, ragged N, all-invalid input, IoUs at the
-threshold and class offsets.
+threshold and class offsets. The deformable conv's sampling must equal the
+plain gather bit for bit (float32 and bf16 x, offsets read through the
+strides of a view, a mask or none, fractional and integer offsets, C on and
+off the vector paths); its adjoint each gradient within 1e-4 of its largest
+entry (float32 atomics sum in another order than ``index_add_``), and
+``DeformConv2dFunction`` on the card against autograd of the plain conv.
 """
 
 import numpy as np
@@ -31,6 +36,7 @@ import torch
 from afigan_tpu_torch.ops import nms as nms_mod
 from afigan_tpu_torch.ops.kernels import LAUNCHES
 from afigan_tpu_torch.ops.kernels import afi_generator as ag
+from afigan_tpu_torch.ops.kernels import deform_conv as dc
 from afigan_tpu_torch.ops.kernels import roi_pool as rp
 from afigan_tpu_torch.ops.kernels.layer_norm import fused_layer_norm, fused_layer_norm_plain
 from afigan_tpu_torch.ops.kernels.nms import nms_keep_sorted, nms_keep_sorted_plain
@@ -710,3 +716,75 @@ def test_generator_in_training_mode_gets_gradients_on_the_card(dev):
         y = gen(x)
     assert LAUNCHES["afi_chain"] == before["afi_chain"] + 16
     _close(y, y_train.detach())
+
+
+def _dcn_inputs(rng, dev, dtype, c, integer, modulated, h=13, w=18):
+    """x (2, h, w, c); offsets a bf16 / float32 view of a (2, h, w, 27)
+    tensor's first 18 channels (fractional in [-3, 3), or integers that
+    land on and beyond the border); a float32 sigmoid mask or None."""
+    x = _t(rng, 2, h, w, c).to(dev, dtype)
+    pred = torch.zeros(2, h, w, 27, device=dev, dtype=dtype)
+    off = (rng.randint(-h - 1, h + 2, (2, h, w, 18)) if integer
+           else rng.uniform(-3, 3, (2, h, w, 18)))
+    pred[..., :18] = torch.from_numpy(off.astype(np.float32)).to(dev, dtype)
+    mask = (torch.sigmoid(_t(rng, 2, h, w, 9)).to(dev) if modulated else None)
+    return x, pred[..., :18], mask
+
+
+@pytest.mark.parametrize("modulated", [True, False])
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("c", [16, 12, 5])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_deform_conv_kernels_equal_plain(dev, dtype, c, integer, modulated):
+    rng = np.random.RandomState(c + 2 * integer + modulated)
+    x, off, mask = _dcn_inputs(rng, dev, dtype, c, integer, modulated)
+    assert not off.is_contiguous()
+    n0, b0 = LAUNCHES["deform_conv"], LAUNCHES["deform_conv_bwd"]
+    cols = dc.deform_im2col(x, off, mask)
+    assert LAUNCHES["deform_conv"] == n0 + 1
+    assert torch.equal(cols, dc.deform_im2col_plain(x, off, mask))
+    g = _t(rng, *cols.shape).to(dev)
+    got = dc.deform_col2im(g, x, off, mask)
+    want = dc.deform_col2im_plain(g, x, off, mask)
+    torch.cuda.synchronize()
+    assert LAUNCHES["deform_conv_bwd"] == b0 + 1
+    for k, w in zip(got, want):
+        if w is None:
+            assert k is None
+            continue
+        err = float((k - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_deform_conv_function_on_the_card_equals_autograd_of_plain(dev, dtype):
+    """Stride 2 and dilation 2: the output bit for bit (the same columns, the
+    same product), every gradient within 1e-4 of its largest entry after
+    both round to their inputs' dtype (bf16: one bf16 step, 1e-2)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(40)
+    x = _t(rng, 2, 15, 17, 16).to(dev, dtype).requires_grad_()
+    # 15x17 at stride 2, padding 2, dilation 2: an 8x9 output
+    off = _t(rng, 2, 8, 9, 18, scale=2.0).to(dev, dtype).requires_grad_()
+    mask = torch.sigmoid(_t(rng, 2, 8, 9, 9)).to(dev).requires_grad_()
+    weight = _t(rng, 24, 16, 3, 3, scale=0.1).to(dev).requires_grad_()
+    args = (x, off, weight, mask)
+    out = dc.DeformConv2dFunction.apply(*args, 2, 2, 2)
+    cot = _t(rng, *out.shape).to(dev)
+    got = torch.autograd.grad(out, args, cot)
+    ref = dc.deform_conv2d_plain(*args, 2, 2, 2)
+    want = torch.autograd.grad(ref, args, cot)
+    assert torch.equal(out, ref)
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert float((g.float() - w.float()).abs().max()) <= rel * float(w.float().abs().max())
+
+
+def test_deform_conv_wrappers_raise_on_mixed_devices(dev):
+    x = torch.zeros(1, 5, 5, 4, device=dev)
+    off = torch.zeros(1, 5, 5, 18)
+    with pytest.raises(ValueError, match="devices"):
+        dc.deform_im2col(x, off)
+    with pytest.raises(ValueError, match="contiguous"):
+        dc.deform_im2col(x.permute(0, 2, 1, 3), off.to(dev))

@@ -39,7 +39,8 @@ SUBPACKAGES = ["afigan_tpu_torch." + m for m in (
     "stage2_train", "models.pafpn", "models.resnest", "engine.tta", "parallel",
     "parallel.dist", "engine.launch", "engine.precise_bn", "utils.msgpack_tree",
     "utils.profiling", "tools.convert_checkpoint", "tools.validate_training",
-    "tools.generate_pseudo_labels", "models.keypoint_head", "models.res5_roi_heads")]
+    "tools.generate_pseudo_labels", "models.keypoint_head", "models.res5_roi_heads",
+    "ops.deform_conv", "ops.kernels.deform_conv")]
 
 
 def _violations(path):

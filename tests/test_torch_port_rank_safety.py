@@ -73,9 +73,11 @@ def test_every_launch_passes_its_tensors_to_the_guard(path):
 def test_every_kernel_wrapper_is_read():
     names = {os.path.basename(p) for p in WRAPPERS}
     assert {"afi_generator.py", "layer_norm.py", "nms.py", "roi_pool.py",
-            "window_attention.py", "window_gather.py"} <= names
+            "window_attention.py", "window_gather.py", "deform_conv.py"} <= names
     launches = sum(len(_calls(ast.parse(open(p).read()), "load")) for p in WRAPPERS)
-    assert launches == 10  # conv3x3, subpixel, rdb chain, upsample, LN, NMS, pool x2, attn, gather
+    # conv3x3, subpixel, rdb chain, upsample, LN, NMS, pool x2, attn, gather,
+    # the deformable conv's sampling and adjoint
+    assert launches == 12
 
 
 SWIN_STAGE2 = [*SWIN_NARROW, "MODEL.GUIDE_ARCHITECTURE", "RCNN_FPN_only",
