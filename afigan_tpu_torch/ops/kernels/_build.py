@@ -42,8 +42,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 PTXAS_LOG: Dict[str, str] = {}
 
 # Launches of the hand-written kernels, by the JAX function each replaces.
-# A wrapper adds one where it launches a kernel, and nowhere else; "nms"
-# counts calls of its C entry (a mask and a reduce launch each).
+# A wrapper adds one where it launches a kernel, and nowhere else.
 LAUNCHES: Dict[str, int] = {"afi_chain": 0, "afi_upsample": 0, "afi_rdb": 0,
                             "roi_pool": 0, "roi_pool_bwd": 0, "layer_norm": 0,
                             "window_attention": 0, "window_gather": 0, "nms": 0,
@@ -133,10 +132,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         "window_attention": {
             "window_attention_forward": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]},
         "window_gather": {"window_gather_forward": [P, P, P, P, I, I, I, I, I, P]},
-        "nms": {"nms_forward": [P, P, P, F, I, I, I, P, P, P]},
+        "nms": {"nms_forward": [P, P, P, F, I, I, I, P, P], "nms_max_n": [],
+                "nms_plan": [I, I, P]},
         "deform_conv": {"deform_im2col": [P, I, *strided, *strided, P, *[I] * 11, P],
                         "deform_col2im": [P, I, *strided, *strided, P, P, P, P, *[I] * 11,
-                                          P]},
+                                          P, P]},
     }
     for fname, argtypes in sigs[name].items():
         fn = getattr(lib, fname)

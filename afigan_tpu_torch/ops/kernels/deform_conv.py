@@ -14,7 +14,12 @@ through XLA's autodiff. The conv is split as JAX writes it:
 * ``deform_col2im``: from the columns' gradient, the gradients of x, of the
   offsets and of the mask, as ``jax.vjp`` of the JAX function gives them
   (``floor`` without a gradient: the forward difference at an integer
-  coordinate; corners outside the map contribute nothing).
+  coordinate; corners outside the map contribute nothing). The kernel sums
+  x's gradient a tile of output pixels at a time over a window of cells,
+  from the tile's column gradient staged in shared memory (4x8 pixels,
+  ``csrc/deform_conv.cu``); a corner outside its tile's window goes to x's
+  gradient in device memory directly, and the launches count those corners
+  (``spill_counts``).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version, explicit torch code: the four gathers for the
@@ -35,6 +40,10 @@ import torch
 
 from . import _build
 from ._build import LAUNCHES
+
+# device → int64 (2,): corners inside the map that fell outside their tile's
+# window, and all corners inside the map, over the adjoint's launches
+_SPILL = {}
 
 
 def out_size(h: int, w: int, kh: int, kw: int, stride: int, padding: int,
@@ -209,9 +218,9 @@ def deform_col2im(grad_cols, x, offsets, mask=None, kernel_size=(3, 3), stride: 
     (B, H, W, C), grad_offsets (B, Ho, Wo, 2K), grad_mask (B, Ho, Wo, K) or
     None), all float32 (the caller rounds them to its inputs' dtypes).
     CUDA tensors: one launch of ``csrc/deform_conv.cu::deform_col2im`` (x's
-    gradient summed with float32 atomics into a zeroed scratch, so it
-    differs from the plain version by summation order); CPU tensors:
-    ``deform_col2im_plain``."""
+    gradient summed a tile's window at a time, then with float32 atomics
+    into a zeroed scratch, so it differs from the plain version by summation
+    order); CPU tensors: ``deform_col2im_plain``."""
     if _devices(grad_cols, x, offsets, mask) == "cpu":
         return deform_col2im_plain(grad_cols, x, offsets, mask, kernel_size, stride, padding,
                                    dilation)
@@ -227,14 +236,39 @@ def deform_col2im(grad_cols, x, offsets, mask=None, kernel_size=(3, 3), stride: 
     grad_off = torch.empty((b, ho, wo, 2 * k), dtype=torch.float32, device=dev)
     grad_mask = None if mask is None else torch.empty((b, ho, wo, k), dtype=torch.float32,
                                                       device=dev)
+    spill = _spill_counter(dev)
     rc = _build.load("deform_conv").deform_col2im(
         x.data_ptr(), _build.dtype_code(x), *_strided(offsets), *_strided(mask),
         grad_cols.data_ptr(), grad_x.data_ptr(), grad_off.data_ptr(), _build.ptr(grad_mask),
-        b, h, w, c, ho, wo, kh, kw, stride, padding, dilation,
-        _build.stream_ptr(grad_cols, x, offsets, mask, grad_x, grad_off, grad_mask))
+        b, h, w, c, ho, wo, kh, kw, stride, padding, dilation, spill.data_ptr(),
+        _build.stream_ptr(grad_cols, x, offsets, mask, grad_x, grad_off, grad_mask, spill))
     _build.check(rc, "deform_col2im")
     LAUNCHES["deform_conv_bwd"] += 1
     return grad_x, grad_off, grad_mask
+
+
+def _spill_counter(device):
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    t = _SPILL.get(device)
+    if t is None:
+        t = _SPILL[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return t
+
+
+def reset_spill(device) -> None:
+    """Zero the adjoint's corner counts on ``device``."""
+    _spill_counter(device).zero_()
+
+
+def spill_counts(device) -> Tuple[int, int]:
+    """(corners inside the map that fell outside their tile's window, all
+    corners inside the map) over the adjoint's launches on ``device`` since
+    ``reset_spill``: the share that took device-memory atomics (reads the
+    card)."""
+    spilled, corners = _spill_counter(device).tolist()
+    return int(spilled), int(corners)
 
 
 def weight_matrix(weight):

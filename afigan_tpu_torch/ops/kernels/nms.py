@@ -5,6 +5,13 @@ XLA code in the JAX package. Its plain version is the blocked loop of
 ``ops/nms.py`` (``nms_keep_sorted_plain`` here applies it image by image),
 and ``ops/nms.py`` routes CPU tensors there and CUDA tensors here. This
 entry launches the kernel or raises; it never falls back to the loop.
+
+The kernel walks each image's sorted boxes in 64-box tiles on one thread
+block cluster, the tiles dealt to its blocks in turn, each block holding its
+tiles in shared memory. The kernel's source sizes the cluster
+(``nms_plan``) and states the most boxes an image may have, ``nms_max_n``:
+16 blocks of the tiles that a block's shared memory holds, 100352 on the
+H100. A larger N raises here, before any launch.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ def nms_keep_sorted(boxes, valid, order, iou_threshold: float, stop_after: int =
     (B, N) bool in sorted order: greedy NMS, ``IoU > iou_threshold``
     suppresses, invalid boxes never suppress. With ``stop_after > 0`` the
     walk stops once that many boxes are kept and later entries are False.
-    CUDA tensors only: one C call, two kernel launches, no host sync."""
+    CUDA tensors only, N at most ``nms_max_n()`` of ``csrc/nms.cu``: one C
+    call, one launch (a thread block cluster an image), no host sync."""
     devs = {t.device.type for t in (boxes, valid, order)}
     if devs != {"cuda"} or len({t.device for t in (boxes, valid, order)}) != 1:
         raise ValueError(f"nms_keep_sorted launches a CUDA kernel: tensors on {devs}")
@@ -36,13 +44,13 @@ def nms_keep_sorted(boxes, valid, order, iou_threshold: float, stop_after: int =
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
     if b * n == 0:
         return keep
-    words = -(-n // 64)
-    mask = torch.empty((b, n, words), dtype=torch.int64, device=boxes.device)
+    lib = _build.load("nms")
+    if n > lib.nms_max_n():
+        raise ValueError(f"NMS over {n} boxes: one cluster holds at most {lib.nms_max_n()}")
     bx, vd, od = boxes.contiguous(), valid.contiguous(), order.contiguous()
-    rc = _build.load("nms").nms_forward(
+    rc = lib.nms_forward(
         bx.data_ptr(), vd.data_ptr(), od.data_ptr(), float(iou_threshold), b, n,
-        int(stop_after), mask.data_ptr(), keep.data_ptr(),
-        _build.stream_ptr(bx, vd, od, mask, keep))
+        max(int(stop_after), 0), keep.data_ptr(), _build.stream_ptr(bx, vd, od, keep))
     _build.check(rc, "nms_forward")
     LAUNCHES["nms"] += 1
     return keep

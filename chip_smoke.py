@@ -32,8 +32,11 @@ CPU):
               pooler at the R-50, Swin and CenterMask shapes; the NMS kernel equal
               to the blocked plain loop on the card entry for entry (outputs,
               orders, keep masks up to the max_out-th kept box) at the RPN,
-              FCOS and detection sizes and the contract's corner cases, and a
-              keep mask with one kept box flipped must fail that check. The
+              training RPN (8819), Res5 (2000), FCOS and detection sizes and
+              the contract's corner cases (``tests/torch_port_nms_cases.py``),
+              and a keep mask with one kept box flipped must fail that check;
+              at the real sizes its device time beside its bound and the
+              walk's floor (tiles walked times one dependent step, measured). The
               pool's backward at the train step's shapes (box pool 2 x 512 ROIs
               at P 7, mask pool 2 x 128 at P 14, C 256) against autograd through
               the plain gather, the same bits on a second run, by events (its
@@ -44,8 +47,10 @@ CPU):
               batch 2: 208x336x128 down to 26x42x512), bf16 x and offsets (a
               non-contiguous view, as the model passes them), a float32 mask or
               none, under fractional, all-zero and integer offsets (samples on
-              rows -1, 0, H-1, H): the columns equal to the plain gather's bit
-              for bit, the three gradients within 1e-4 of their largest entry;
+              rows -1, 0, H-1, H), and off the path at C 36 and 10, stride
+              and dilation 2: the columns equal to the plain gather's bit
+              for bit, the three gradients within 1e-4 of their largest entry,
+              the share of the adjoint's corners outside their tile's window;
               kernel, plain and bound ms of the main path's case by events
   3. slice    Mask R-CNN R-50-FPN + AF interpolator at full width (bf16, random
               weights from a seeded torch.Generator) through ``build_model``
@@ -483,6 +488,31 @@ def median_ms(fn, iters=10, warmup=2, inner=4):
     return float(np.median(times))
 
 
+def device_ms_per_call(fn, names, reps=20):
+    """Device time a call of ``fn`` (ms) of the kernels whose names hold one
+    of ``names``, one launch each a call: over ``reps`` calls under
+    torch.profiler, each kernel's mean over the launches its trace holds (a
+    trace that drops records then reads no lower), summed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and any(n in e.key for n in names):
+            tot, count = us.get(e.key, (0.0, 0))
+            us[e.key] = (tot + e.self_device_time_total, count + e.count)
+    if not us:
+        raise AssertionError(f"{names}: no launch in the profiler's trace")
+    return sum(tot / count for tot, count in us.values()) / 1000.0
+
+
 def timed_steps(step):
     """``TRAIN_WARMUP`` + ``TRAIN_TIMED`` calls of ``step`` (a train step that
     returns its metrics): (every step's metrics, and for the timed steps the
@@ -735,14 +765,14 @@ def kernels_generator(results):
 
 
 PORT_KERNELS = ("afi::", "roi_pool_kernel", "layer_norm_kernel", "window_attention_",
-                "window_gather_kernel", "nms_mask_kernel", "nms_reduce_kernel",
-                "roi_pool_bwd_kernel", "deform_im2col_kernel", "deform_col2im_kernel")
+                "window_gather_kernel", "nms_cluster_kernel", "roi_pool_bwd_kernel",
+                "deform_im2col_kernel", "deform_col2im_kernel")
 
 
 def device_kernels(counts):
     """The device kernels that the wrappers' launch counts stand for: one
-    each, but two for a call of the NMS entry (its mask and its reduce)."""
-    return sum(counts.values()) + counts.get("nms", 0)
+    each."""
+    return sum(counts.values())
 
 
 def device_events(fn, expected, record_shapes=False, tries=3):
@@ -884,6 +914,7 @@ class BoundCapture:
 
     def __init__(self):
         self.ms = {"roi_pool": [0.0, 0], "nms": [0.0, 0]}
+        self.walk = [0, 0.0, True]  # NMS tiles walked, their floor (ms), all steps measured
 
     def _add(self, name, nbytes, ops):
         self.ms[name][0] += 1000 * max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"])
@@ -903,10 +934,16 @@ class BoundCapture:
 
         def nms_bound(boxes, valid, order, *a, **k):
             keep = keep_sorted(boxes, valid, order, *a, **k)
+            stop = a[1] if len(a) > 1 else k.get("stop_after", 0)
+            step = WALK_STEP_MS.get(nms_plan(boxes.shape[1])[0])
             nbytes = ops = 0
             for i in range(boxes.shape[0]):
                 w = _nms_work(valid[i][order[i]], keep[i], boxes.shape[1])
                 nbytes, ops = nbytes + w[0], ops + w[1]
+                tiles = walked_tiles(valid[i][order[i]], keep[i], stop)
+                self.walk[0] += tiles
+                self.walk[1] += tiles * (step or 0.0)
+                self.walk[2] &= step is not None
             self._add("nms", nbytes, ops)
             return keep
 
@@ -920,8 +957,12 @@ class BoundCapture:
         roi_pool.roi_pool, nms.nms_keep_sorted = self._saved
 
     def log(self, what):
+        tiles, floor, whole = self.walk
         log(f"  {what}: bound of its launches (their own inputs) " + ", ".join(
-            f"{k} {ms:.4f} ms over {n} launches" for k, (ms, n) in self.ms.items()))
+            f"{k} {ms:.4f} ms over {n} launches" for k, (ms, n) in self.ms.items())
+            + f"; the NMS walks {tiles} tiles, floor " + (f"{floor:.4f} ms" if whole else
+                                                         "not measured (no step measured "
+                                                         "at one of its cluster sizes)"))
 
 
 def kernels_roi_pool(results):
@@ -1387,7 +1428,9 @@ def check_nms(tag, got, want, upto):
 
 
 def _nms_work(valid_s, keep, n):
-    """(bytes, operations) that one image's keep mask needs on this input:
+    """(bytes, operations) that one image's keep mask needs on this input,
+    counted as a kernel that stores the sorted boxes' suppression words in
+    device memory would move them (the row's bound keeps that definition):
     boxes, validity and order read, the keep mask written, the suppression
     words of every valid row written (from its 64-box tile on) and those of
     the kept rows read back (their tile's diagonal word and the later tiles
@@ -1411,7 +1454,10 @@ def kernels_nms(results):
     ``nms_padded`` outputs and orders equal entry for entry, keep masks equal
     everywhere without ``stop_after`` and up to the ``max_out``-th kept box
     with it; a keep mask with one kept box flipped must fail that check.
-    The keep-mask function timed both ways at the three real sizes."""
+    The keep-mask function timed both ways at the real sizes (RPN, FCOS and
+    detection pools at inference, the training RPN and the Res5 path's one
+    level), by events and its device time, beside its bound and the walk's
+    floor (``nms_walk_step`` times the tiles walked)."""
     import torch
 
     from afigan_tpu_torch.ops import nms
@@ -1429,7 +1475,8 @@ def kernels_nms(results):
     # real size → (path, calls per batch): RPN and detection NMS once per
     # image on the R-CNN paths, FCOS NMS once per image on CenterMask
     paths = {"rpn": [("r50", 2), ("swin", 2)], "detection": [("r50", 2), ("swin", 2)],
-             "fcos": [("centermask", 2)]}
+             "fcos": [("centermask", 2)], "rpn_train": [("train_cascade", 2)],
+             "res5_train": [("train_res5", 2)]}
     for case in CARD_CASES:
         boxes, scores, valid, idxs, thr, max_out = (
             torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
@@ -1478,13 +1525,80 @@ def kernels_nms(results):
         fk = lambda: nms_keep_sorted(b3, v2, o2, thr, max_out)  # noqa: E731
         fp = lambda: nms_keep_sorted_plain(b3, v2, o2, thr, max_out)  # noqa: E731
         tk, tp = median_ms(fk), median_ms(fp, iters=5, inner=1)
+        dk = device_ms_per_call(fk, ("nms_cluster_kernel",))
         keep = fk()[0]
         nbytes, ops = _nms_work(valid[order], keep, len(boxes))
-        log(f"  nms {case} keep mask (stop_after={max_out}): kernel {tk:.3f} ms, plain loop "
-            f"{tp:.3f} ms; {nbytes / 1e6:.2f} MB and {ops / 1e6:.1f} M operations needed")
+        cluster, per_block, history = nms_plan(len(boxes), max_out)
+        step = nms_walk_step(len(boxes))
+        walked = walked_tiles(valid[order], keep, max_out)
+        bound = 1000 * max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"])
+        log(f"  nms {case} keep mask (stop_after={max_out}): kernel {tk:.3f} ms by events, "
+            f"{dk:.4f} ms on the device (a cluster of {cluster} blocks x {per_block} tiles, "
+            f"history {history}), plain loop {tp:.3f} ms; "
+            f"{nbytes / 1e6:.2f} MB and "
+            f"{ops / 1e6:.1f} M operations needed: bound {bound:.4f} ms; the walk's floor "
+            f"{walked} tiles x {1000 * step:.2f} us a step = {walked * step:.4f} ms")
         for path, count in paths[case]:
             tally(results, "nms", path, "bfloat16").add(tk, tp, nbytes, ops, "float32", 0.0,
                                                           count)
+
+
+def nms_plan(n, stop_after=0):
+    """(blocks in the cluster, 64-box tiles a block, kept boxes of history)
+    with which ``csrc/nms.cu`` walks an image of ``n`` boxes: its
+    ``nms_plan``."""
+    import ctypes
+
+    from afigan_tpu_torch.ops.kernels import _build
+
+    out = (ctypes.c_int * 3)()
+    if _build.load("nms").nms_plan(n, stop_after, ctypes.addressof(out)):
+        raise ValueError(f"no NMS plan for {n} boxes")
+    return tuple(out)
+
+
+# ms of one dependent step of the NMS walk, by cluster size (kernels_nms
+# measures it at the main paths' sizes; BoundCapture reads it)
+WALK_STEP_MS = {}
+
+
+def nms_walk_step(n):
+    """ms of one dependent step of the NMS walk over ``n`` boxes (on the
+    cluster of ``nms_plan(n)``): the device time of a launch whose boxes
+    are disjoint and valid one a tile (every tile walked, one box kept and
+    applied a tile) less that of a launch with no valid box (the same loads
+    and column words, no walk), over the tiles."""
+    import torch
+
+    from afigan_tpu_torch.ops.kernels import nms as knms
+
+    dev = torch.device("cuda")
+    i = torch.arange(n, device=dev, dtype=torch.float32)
+    boxes = torch.stack([4 * i, 0 * i, 4 * i + 1, 0 * i + 1], 1)[None]
+    order = torch.arange(n, device=dev)[None]
+    sparse = (torch.arange(n, device=dev) % 64 == 0)[None]
+    t1 = device_ms_per_call(lambda: knms.nms_keep_sorted(boxes, sparse, order, 0.5),
+                            ("nms_cluster_kernel",))
+    none = torch.zeros_like(sparse)
+    t0 = device_ms_per_call(lambda: knms.nms_keep_sorted(boxes, none, order, 0.5),
+                            ("nms_cluster_kernel",))
+    step = max(t1 - t0, 0.0) / -(-n // 64)
+    WALK_STEP_MS[nms_plan(n)[0]] = step
+    return step
+
+
+def walked_tiles(valid_s, keep, stop_after):
+    """The 64-box tiles that the kernel's walk resolves for one image: up to
+    the last valid box, or to the ``stop_after``-th kept box."""
+    import torch
+
+    if not bool(valid_s.any()):
+        return 0
+    end = int(torch.nonzero(valid_s).max()) + 1
+    kept = torch.nonzero(keep).flatten()
+    if stop_after > 0 and kept.numel() >= stop_after:
+        end = min(end, int(kept[stop_after - 1]) + 1)
+    return -(-end // 64)
 
 
 # the deformable convs of one batch of the ResNeSt-101 cascade with
@@ -1493,17 +1607,27 @@ def kernels_nms(results):
 DCN_SHAPES = [((208, 336), 128, 1), ((104, 168), 128, 3), ((104, 168), 256, 1),
               ((52, 84), 256, 22), ((52, 84), 512, 1), ((26, 42), 512, 2)]
 DCN_OFFSETS = ("fractional", "zero", "integer")
+# the kernels' contract off the path: (map H, W), channels, stride, dilation
+# (padding = dilation): C not a multiple of the adjoint's 16-channel chunk
+# (``CHUNK`` in csrc/deform_conv.cu), C % 4 != 0 (no vectors), stride 2,
+# dilation 2
+DCN_CONTRACT = [((26, 42), 36, 1, 1), ((26, 42), 10, 1, 1), ((52, 84), 64, 2, 1),
+                ((52, 84), 64, 1, 2), ((52, 84), 64, 2, 2)]
 
 
-def dcn_offsets(kind, b, h, w, gen):
-    """(B, H, W, 18) bf16 offsets of a 3x3 at stride 1 and padding 1 (on the
-    CPU, from ``gen``): ``fractional`` (2 N(0, 1), none an integer),
-    ``zero``, or ``integer``: each sample on row -1, 0, H-1 or H (column -1,
-    0, W-1 or W), or with probability 0.4 on an interior pixel; offsets
-    above 256 round to even integers in bf16, still integers."""
+def dcn_offsets(kind, b, h, w, gen, stride=1, dilation=1):
+    """(B, Ho, Wo, 18) bf16 offsets of a 3x3 over an h x w map at ``stride``
+    and ``dilation`` (padding = dilation; on the CPU, from ``gen``):
+    ``fractional`` (2 N(0, 1), none an integer), ``zero``, or ``integer``:
+    each sample on row -1, 0, H-1 or H (column -1, 0, W-1 or W), or with
+    probability 0.4 on an interior pixel; offsets above 256 round to even
+    integers in bf16, still integers."""
     import torch
 
-    shape = (b, h, w, 18)
+    from afigan_tpu_torch.ops.kernels.deform_conv import out_size
+
+    ho, wo = out_size(h, w, 3, 3, stride, dilation, dilation)
+    shape = (b, ho, wo, 18)
     if kind == "zero":
         return torch.zeros(shape, dtype=torch.bfloat16)
     if kind == "fractional":
@@ -1515,11 +1639,12 @@ def dcn_offsets(kind, b, h, w, gen):
         inner = torch.randint(1, size - 1, (n,), generator=gen)
         return torch.where(torch.rand(n, generator=gen) < 0.6, border, inner)
 
-    n = b * h * w * 9
-    ty = land(n, h).reshape(b, h, w, 3, 3)
-    tx = land(n, w).reshape(b, h, w, 3, 3)
-    by = (torch.arange(h)[:, None] - 1 + torch.arange(3))[None, :, None, :, None]
-    bx = (torch.arange(w)[:, None] - 1 + torch.arange(3))[None, None, :, None, :]
+    n = b * ho * wo * 9
+    ty = land(n, h).reshape(b, ho, wo, 3, 3)
+    tx = land(n, w).reshape(b, ho, wo, 3, 3)
+    taps = torch.arange(3) * dilation - dilation
+    by = (torch.arange(ho)[:, None] * stride + taps)[None, :, None, :, None]
+    bx = (torch.arange(wo)[:, None] * stride + taps)[None, None, :, None, :]
     return torch.stack([ty - by, tx - bx], -1).reshape(shape).bfloat16()
 
 
@@ -1543,14 +1668,17 @@ def kernels_deform_conv(results):
     six shapes of ``DCN_SHAPES`` (batch 2, bf16 x, the offsets a bf16 view of
     a (B, H, W, 27) tensor's first 18 channels, as the model passes them; a
     float32 sigmoid mask or none), under the three offset sets of
-    ``dcn_offsets``: the columns bit for bit, the three gradients of the
+    ``dcn_offsets``, and at the contract's shapes off the path
+    (``DCN_CONTRACT``): the columns bit for bit, the three gradients of the
     adjoint (on a random columns' gradient) within ``TOL["dcn_bwd"]``, whose
-    bound must reject x's gradient taken without the mask. The main path's
-    case (modulated, fractional) timed by events, kernel and
-    plain; the forward into ``resnest_dcn``'s tally, the backward into
+    bound must reject x's gradient taken without the mask; the share of the
+    adjoint's corners that fell outside their tile's window at each. The main
+    path's case (modulated, fractional) timed by events, kernel and plain;
+    the forward into ``resnest_dcn``'s tally, the backward into
     ``train_dcn``'s, each with its convs a batch."""
     import torch
 
+    from afigan_tpu_torch.ops.kernels import deform_conv as dc
     from afigan_tpu_torch.ops.kernels.deform_conv import (deform_col2im, deform_col2im_plain,
                                                           deform_im2col, deform_im2col_plain)
 
@@ -1558,25 +1686,34 @@ def kernels_deform_conv(results):
     gen = torch.Generator().manual_seed(5)
     dgen = torch.Generator(device=dev).manual_seed(5)
     B = 2
-    for (h, w), c, count in DCN_SHAPES:
+    shapes = [(hw, c, count, 1, 1) for hw, c, count in DCN_SHAPES]
+    shapes += [(hw, c, 0, st, dl) for hw, c, st, dl in DCN_CONTRACT]
+    for (h, w), c, count, stride, dil in shapes:
         x = torch.randn((B, h, w, c), generator=gen).to(dev, torch.bfloat16)
-        n = B * h * w
+        ho, wo = dc.out_size(h, w, 3, 3, stride, dil, dil)
+        n = B * ho * wo
+        conv = ((3, 3), stride, dil, dil)
         gcols = torch.randn((n, 9 * c), generator=dgen, device=dev)
         for modulated in (True, False):
-            mask = (torch.sigmoid(torch.randn((B, h, w, 9), generator=gen)).to(dev)
+            mask = (torch.sigmoid(torch.randn((B, ho, wo, 9), generator=gen)).to(dev)
                     if modulated else None)
             for kind in DCN_OFFSETS:
-                pred = torch.zeros((B, h, w, 27), dtype=torch.bfloat16, device=dev)
-                pred[..., :18] = dcn_offsets(kind, B, h, w, gen).to(dev)
+                pred = torch.zeros((B, ho, wo, 27), dtype=torch.bfloat16, device=dev)
+                pred[..., :18] = dcn_offsets(kind, B, h, w, gen, stride, dil).to(dev)
                 off = pred[..., :18]
-                tag = f"{h}x{w}x{c} {'modulated' if modulated else 'unmodulated'} {kind}"
-                fk = lambda: deform_im2col(x, off, mask)  # noqa: E731
-                fp = lambda: deform_im2col_plain(x, off, mask)  # noqa: E731
-                bk = lambda: deform_col2im(gcols, x, off, mask)  # noqa: E731
-                bp = lambda: deform_col2im_plain(gcols, x, off, mask)  # noqa: E731
+                tag = (f"{h}x{w}x{c}" + (f" stride {stride} dilation {dil}" if count == 0
+                                         else "")
+                       + f" {'modulated' if modulated else 'unmodulated'} {kind}")
+                fk = lambda: deform_im2col(x, off, mask, *conv)  # noqa: E731
+                fp = lambda: deform_im2col_plain(x, off, mask, *conv)  # noqa: E731
+                bk = lambda: deform_col2im(gcols, x, off, mask, *conv)  # noqa: E731
+                bp = lambda: deform_col2im_plain(gcols, x, off, mask, *conv)  # noqa: E731
                 e_f = compare(f"deform_conv {tag} columns", fk(), fp(), "dcn_fwd", "bfloat16",
                               quiet=True)
-                got, want = bk(), bp()
+                dc.reset_spill(dev)
+                got = bk()
+                spilled, corners = dc.spill_counts(dev)
+                want = bp()
                 torch.cuda.synchronize()
                 e_b = 0.0
                 for name, g_k, g_p in zip(("x", "offsets", "mask"), got, want):
@@ -1587,8 +1724,9 @@ def kernels_deform_conv(results):
                     e_b = max(e_b, compare(f"deform_conv_bwd {tag} grad_{name}", g_k, g_p,
                                            "dcn_bwd", "bfloat16", quiet=True))
                 msg = (f"  deform_conv {tag}: columns equal bit for bit; adjoint max_abs_err "
-                       f"{e_b:.3e}")
-                if modulated and kind == "fractional":
+                       f"{e_b:.3e}, {spilled} of {corners} corners inside the map outside "
+                       f"their tile's window ({100 * spilled / max(corners, 1):.2f} %)")
+                if modulated and kind == "fractional" and count:
                     # the bound must reject x's gradient with the mask left out
                     reject(f"deform_conv_bwd {tag} grad_x without the mask",
                            deform_col2im_plain(gcols, x, off, None)[0], want[0], "dcn_bwd",
@@ -2139,7 +2277,8 @@ class HeldKernels:
         self.windows = windows  # the windowed pooler's copy (window_gather) too
         self.err = {}    # kernel → max error
         self.calls = {}  # kernel → calls compared
-        self.nms = []    # per NMS call: (valid candidates, kept, suppressed up to the stop)
+        # per NMS call: (boxes N, valid candidates, kept, suppressed up to the stop)
+        self.nms = []
 
     def _held(self, name, kernel, plain, drop=()):
         def call(*a, **k):
@@ -2158,7 +2297,7 @@ class HeldKernels:
                     raise AssertionError("nms: the kernel's keep mask differs from the "
                                          "plain loop's")
                 valid_s = torch.gather(a[1], 1, a[2])[:, :upto]
-                self.nms.append((int(a[1].sum()), int(got.sum()),
+                self.nms.append((n, int(a[1].sum()), int(got.sum()),
                                  int((valid_s & ~got[:, :upto]).sum())))
                 err = 0.0
             elif name == "window_gather":  # a copy: bit for bit (no float32 copies)
@@ -3030,7 +3169,7 @@ def held_batch(path, model, batch, want, windows=False):
         raise AssertionError(f"{path}: held {held.calls}, expected {want}")
     log(f"  {path}: one batch's launches held against their plain versions: " + ", ".join(
         f"{k} x{n} max_abs_err {held.err[k]:.3e}" for k, n in held.calls.items())
-        + f"; NMS calls (valid candidates, kept, suppressed before the stop) {held.nms}")
+        + f"; NMS calls (N, valid candidates, kept, suppressed before the stop) {held.nms}")
 
 
 def phase_slice_keypoint(results, n_batches=10):
@@ -3465,10 +3604,10 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
         raise AssertionError(f"{path}: held {held.calls} launches, expected {want}")
     log(f"  {path}: one step's launches held against their plain versions: " + ", ".join(
         f"{k} x{n_} max_abs_err {held.err[k]:.3e}" for k, n_ in held.calls.items()))
-    log(f"  {path}: the held step's NMS calls (valid candidates, kept, suppressed before "
-        f"the stop) {held.nms}; ROIs sampled {rois.det} from the proposals ({rois.fg_det} "
-        f"foreground), {rois.gt} appended GT")
-    if min(min(v, s) for v, _, s in held.nms) == 0:
+    log(f"  {path}: the held step's NMS calls (N, valid candidates, kept, suppressed "
+        f"before the stop) {held.nms}; ROIs sampled {rois.det} from the proposals "
+        f"({rois.fg_det} foreground), {rois.gt} appended GT")
+    if min(min(v, s) for _, v, _, s in held.nms) == 0:
         raise AssertionError(f"{path}: an NMS call without valid candidates or suppression")
     if getattr(trainer.model, "roi_heads", None) is not None and rois.det == 0:
         raise AssertionError(f"{path}: the ROI sampler took only the appended GT")
@@ -3550,6 +3689,10 @@ def held_want(per_step, backward):
 # sampling launch a deformable conv forward and one adjoint launch backward
 DCN_TRAIN_PER_STEP = dict(CASCADE_TRAIN_PER_STEP, deform_conv=30, deform_conv_bwd=30)
 DCN_MORE_STEPS = 3
+# where phase ``train_dcn`` saves the adjoint's calls of two steps after
+# ``offsets_on``: the traffic that ``kernel_ab.py`` times
+DCN_CALLS = Path(__file__).resolve().parent / "output" / "chip_smoke_train_dcn" / \
+    "adjoint_calls.pt"
 
 
 def dcn_train_cfg(out_dir):
@@ -3561,12 +3704,19 @@ def dcn_train_cfg(out_dir):
 
 def dcn_held_step(path, what, step):
     """One step under ``HeldKernels`` (bf16, the backward too): the calls
-    held must be a whole ``DCN_TRAIN_PER_STEP`` step; the metrics."""
+    held must be a whole ``DCN_TRAIN_PER_STEP`` step; the metrics, and the
+    share of the adjoint's corners that fell outside their tile's window."""
+    import torch
+
     from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from afigan_tpu_torch.ops.kernels import deform_conv as dc
 
     reset_launches()
+    dev = torch.device("cuda")
+    dc.reset_spill(dev)
     with HeldKernels("bfloat16", backward=True) as held:
         m = step()
+    spilled, corners = dc.spill_counts(dev)
     want = held_want(DCN_TRAIN_PER_STEP, True)
     if held.calls != want or any(LAUNCHES[k] != n for k, n in DCN_TRAIN_PER_STEP.items()):
         raise AssertionError(f"{path} {what}: held {held.calls}, launches {dict(LAUNCHES)}, "
@@ -3575,7 +3725,8 @@ def dcn_held_step(path, what, step):
         raise AssertionError(f"{path} {what}: a non-finite loss {m}")
     log(f"  {path} {what}: launches held against their plain versions: " + ", ".join(
         f"{k} x{n} max_abs_err {held.err[k]:.3e}" for k, n in held.calls.items())
-        + f"; total_loss {m['total_loss']:.4f}")
+        + f"; total_loss {m['total_loss']:.4f}; the adjoint's corners outside their tile's "
+        f"window {spilled} of {corners} ({100 * spilled / max(corners, 1):.2f} %)")
     return m
 
 
@@ -3613,13 +3764,16 @@ def dcn_offsets_on(path, step, model):
     """The offset predictors set off zero (``offsets_on``: taps moved by a
     few pixels, samples between pixels), one step held, then
     ``DCN_MORE_STEPS`` steps with their launches counted one by one: losses
-    finite, ms a step (host clock to a synchronize), peak memory."""
+    finite, ms a step (host clock to a synchronize), peak memory; one more
+    step, and the adjoint's calls of the held step and of that one saved to
+    ``DCN_CALLS`` for ``kernel_ab.py``."""
     import torch
 
     from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     offsets_on(model)
-    dcn_held_step(path, "step after offsets_on", step)
+    with AdjointCalls() as first:
+        dcn_held_step(path, "step after offsets_on", step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms, losses = [], []
@@ -3639,6 +3793,46 @@ def dcn_offsets_on(path, step, model):
         f"ms a step {', '.join(f'{t:.1f}' for t in ms)}; total_loss "
         f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with AdjointCalls() as later:
+        step()
+    calls = {"step after offsets_on": first.calls,
+             f"step {DCN_MORE_STEPS + 2} after offsets_on": later.calls}
+    if any(len(c) != DCN_TRAIN_PER_STEP["deform_conv_bwd"] for c in calls.values()):
+        raise AssertionError(f"{path}: adjoint calls a step {[len(c) for c in calls.values()]}")
+    DCN_CALLS.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(calls, DCN_CALLS)
+    log(f"  {path}: the adjoint calls (offsets, masks, shapes) of the held step after "
+        f"offsets_on and of one more step saved to {DCN_CALLS}")
+
+
+class AdjointCalls:
+    """Within the block, the deformable adjoint's calls recorded (``calls``):
+    for each, what sets its work, x's shape and dtype, the offsets and the
+    mask (values and element strides) and the conv's geometry; the values of
+    x and of the columns' gradient, which set no part of it, are left out.
+    Entered outside ``HeldKernels``, whose held calls then pass through it."""
+
+    def __enter__(self):
+        from afigan_tpu_torch.ops.kernels import deform_conv as dc
+
+        self.calls, orig = [], dc.deform_col2im
+        self._orig = orig
+
+        def record(grad_cols, x, offsets, mask=None, *conv):
+            self.calls.append({"x": (tuple(x.shape), str(x.dtype)[6:]),
+                               "offsets": offsets.cpu(), "offsets_stride": offsets.stride(),
+                               "mask": None if mask is None else mask.cpu(),
+                               "mask_stride": None if mask is None else mask.stride(),
+                               "conv": conv})
+            return orig(grad_cols, x, offsets, mask, *conv)
+
+        dc.deform_col2im = record
+        return self
+
+    def __exit__(self, *exc):
+        from afigan_tpu_torch.ops.kernels import deform_conv as dc
+
+        dc.deform_col2im = self._orig
 
 
 def phase_train_dcn(results):
@@ -5442,8 +5636,9 @@ def check_tools_steps(loops, results):
         log(f"  stage {s}: {len(rec['steps'])} steps of {json.dumps(want)} launches each; its "
             f"first step held against the plain versions at {rec['dtype']}: " + (", ".join(
                 f"{k} x{n} max_abs_err {held.err[k]:.3e}" for k, n in held.calls.items())
-                or "nothing launched") + (f"; NMS calls (valid candidates, kept, suppressed "
-                                          f"before the stop) {held.nms}" if held.nms else ""))
+                or "nothing launched") + (f"; NMS calls (N, valid candidates, kept, "
+                                          f"suppressed before the stop) {held.nms}"
+                                          if held.nms else ""))
         if s > 1:
             for k, n in TOOLS_TRAIN_PER_STEP.items():
                 results[k].setdefault("launches", {})[f"tools_validate_s{s}"] = n
@@ -5599,7 +5794,7 @@ def tools_pseudo_labels(results, validated: Path):
     log(f"  pseudo labels: the first image's calls held against their plain versions at "
         f"{cfg.TPU.COMPUTE_DTYPE}: " + ", ".join(
             f"{k} x{n} max_abs_err {held.err[k]:.3e}" for k, n in held.calls.items())
-        + f"; NMS calls (valid candidates, kept, suppressed before the stop) {held.nms}")
+        + f"; NMS calls (N, valid candidates, kept, suppressed before the stop) {held.nms}")
     if len(per_image) != 16:
         raise AssertionError(f"pseudo labels: {len(per_image)} images, expected 16")
     for i, counts in enumerate(per_image):

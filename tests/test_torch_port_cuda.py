@@ -20,21 +20,30 @@ ROIs partly or wholly outside the map, and every launch split gives the
 same bits. The NMS kernel must equal the blocked plain loop on the card
 entry for entry (``nms_padded`` / ``batched_nms_padded`` outputs, the keep
 mask up to the ``max_out``-th kept box) at the main paths' sizes (RPN 4819,
-FCOS 5000, detection 4096), ties, ragged N, all-invalid input, IoUs at the
-threshold and class offsets. The deformable conv's sampling must equal the
-plain gather bit for bit (float32 and bf16 x, offsets read through the
-strides of a view, a mask or none, fractional and integer offsets, C on and
-off the vector paths); its adjoint each gradient within 1e-4 of its largest
-entry (float32 atomics sum in another order than ``index_add_``), and
-``DeformConv2dFunction`` on the card against autograd of the plain conv.
+the training RPN 8819 stopping at 2000 kept, the Res5 path's one level 2000,
+FCOS 5000, detection 4096), ties, ragged N around the tile, a block's share
+and the largest cluster's, all-invalid input, IoUs at the threshold and
+class offsets; the kernel's cluster plan covers every box, and the largest
+N one cluster holds runs while one more box raises. The deformable conv's
+sampling must equal the plain gather bit for bit (float32 and bf16 x,
+offsets read through the strides of a view, a mask or none, fractional and
+integer offsets, C on and off the vector paths); its adjoint each gradient
+within 1e-4 of its largest entry (float32 atomics sum in another order than
+``index_add_``), also at C not a multiple of its 16-channel chunk
+(``CHUNK`` in ``csrc/deform_conv.cu``), at stride and dilation 2, with the
+channels split over clusters of 2 to 8 blocks, and where one tile's corners
+fall both inside and outside its window (the spill path, counted);
+and ``DeformConv2dFunction`` on the card against autograd of the plain conv.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
 from afigan_tpu_torch.ops import nms as nms_mod
-from afigan_tpu_torch.ops.kernels import LAUNCHES
+from afigan_tpu_torch.ops.kernels import LAUNCHES, _build
 from afigan_tpu_torch.ops.kernels import afi_generator as ag
 from afigan_tpu_torch.ops.kernels import deform_conv as dc
 from afigan_tpu_torch.ops.kernels import roi_pool as rp
@@ -197,7 +206,7 @@ def test_nms_kernel_equals_plain(dev, monkeypatch, case):
     assert torch.equal(got_stop[1][:upto], want_stop[1][:upto])
 
 
-@pytest.mark.parametrize("case", ["rpn", "fcos", "all_invalid"])
+@pytest.mark.parametrize("case", ["rpn", "rpn_train", "fcos", "all_invalid"])
 def test_nms_calls_make_no_host_sync(dev, case):
     """Under ``set_sync_debug_mode("error")`` any operation that makes the
     host wait on the card raises: the NMS route on CUDA tensors has none."""
@@ -226,6 +235,65 @@ def test_nms_kernel_batch_entry(dev):
     for i in range(2):
         assert torch.equal(both[i], nms_keep_sorted(boxes[i:i + 1], valid[i:i + 1],
                                                     order[i:i + 1], 0.6)[0])
+
+
+# the main paths' largest NMS inputs: the training RPN over p2-p6 at
+# 832x1344 (2000 a level, 819 on p6) and at the Swin's 896x1408 (924 on p6),
+# the test pools (1000 a level), FCOS's 5 levels, the detection pool, the
+# Res5 path's one level, a TTA merge (18 passes x 100)
+NMS_PATH_SIZES = (8819, 8924, 4819, 4924, 5000, 4096, 2000, 1800)
+
+
+def _nms_plan(n, stop_after=0):
+    """``csrc/nms.cu::nms_plan``: (blocks in the cluster, 64-box tiles a
+    block, kept boxes of history), or None where it refuses n."""
+    out = (ctypes.c_int * 3)()
+    rc = _build.load("nms").nms_plan(n, stop_after, ctypes.addressof(out))
+    return None if rc else tuple(out)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 129, 255, 257, 1000, 4095, 4097,
+                               *NMS_PATH_SIZES])
+def test_nms_plan_covers_every_box(dev, n):
+    """``csrc/nms.cu``'s cluster for n boxes: 1 to 16 blocks, every box on a
+    block, no block without a tile, no share larger than need be; with the
+    paths' stops (1000 or 2000 kept, 100 detections) room for the history."""
+    tiles = -(-n // 64)
+    cluster, per_block, history = _nms_plan(n)
+    assert 1 <= cluster <= 16 and cluster <= tiles
+    assert cluster * per_block * 64 >= n and (per_block - 1) * cluster < tiles
+    assert history == 0
+    for stop in (100, 1000, 2000):
+        assert _nms_plan(n, stop) == (cluster, per_block, stop)
+
+
+def test_nms_plan_limit(dev):
+    """The largest N exceeds every path's pool; above it the plan raises."""
+    n = _build.load("nms").nms_max_n()
+    assert n > max(NMS_PATH_SIZES)
+    assert _nms_plan(n)[0] == 16
+    assert _nms_plan(0) is None and _nms_plan(n + 1) is None
+
+
+def test_nms_kernel_at_the_largest_n(dev):
+    """``nms_max_n()`` boxes (16 blocks, each its shared memory nearly full)
+    equal the plain loop; one box more raises before any launch."""
+    n = _build.load("nms").nms_max_n()
+    rng = np.random.RandomState(7)
+    xy = rng.rand(n, 2) * [1344, 832]
+    wh = np.exp(rng.rand(n, 2) * np.log(200 / 4)) * 4
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.rand(n) > 0.05).to(dev)
+    scores = torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev)
+    order = torch.sort(-torch.where(valid, scores, -1e10), stable=True).indices
+    got = nms_keep_sorted(boxes[None], valid[None], order[None], 0.7)
+    assert torch.equal(got, nms_keep_sorted_plain(boxes[None], valid[None], order[None], 0.7))
+    one_more = torch.zeros((1, n + 1, 4), device=dev)
+    n0 = LAUNCHES["nms"]
+    with pytest.raises(ValueError, match="at most"):
+        nms_keep_sorted(one_more, torch.ones((1, n + 1), dtype=torch.bool, device=dev),
+                        torch.arange(n + 1, device=dev)[None], 0.7)
+    assert LAUNCHES["nms"] == n0
 
 
 # (R, window, C, sumH, Wmax, a view at an odd element offset)
@@ -733,7 +801,7 @@ def _dcn_inputs(rng, dev, dtype, c, integer, modulated, h=13, w=18):
 
 @pytest.mark.parametrize("modulated", [True, False])
 @pytest.mark.parametrize("integer", [False, True])
-@pytest.mark.parametrize("c", [16, 12, 5])
+@pytest.mark.parametrize("c", [16, 12, 5, 36, 70])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_deform_conv_kernels_equal_plain(dev, dtype, c, integer, modulated):
     rng = np.random.RandomState(c + 2 * integer + modulated)
@@ -754,6 +822,52 @@ def test_deform_conv_kernels_equal_plain(dev, dtype, c, integer, modulated):
             continue
         err = float((k - w).abs().max())
         assert err <= 1e-4 * float(w.abs().max()), err
+
+
+def _adjoint_close(got, want):
+    for k, w in zip(got, want):
+        if w is None:
+            assert k is None
+            continue
+        err = float((k - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+
+
+@pytest.mark.parametrize("stride,dilation", [(1, 1), (2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_deform_adjoint_spill_path(dev, dtype, stride, dilation):
+    """Zero offsets but for one tap in five, which lands 2 to 12 cells
+    away: one 8x8 tile holds corners inside its window and corners outside
+    it (counted as spilled), at stride and dilation 1 and 2."""
+    rng = np.random.RandomState(50 + 2 * stride + dilation)
+    h, w, c = 27, 35, 36
+    x = _t(rng, 2, h, w, c).to(dev, dtype)
+    ho, wo = dc.out_size(h, w, 3, 3, stride, dilation, dilation)
+    off = np.zeros((2, ho, wo, 18), np.float32)
+    far = rng.rand(2, ho, wo, 9) < 0.2
+    jump = rng.uniform(2, 12, (2, ho, wo, 9, 2)) * rng.choice([-1, 1], (2, ho, wo, 9, 2))
+    off.reshape(2, ho, wo, 9, 2)[far] = jump[far]
+    off = torch.from_numpy(off).to(dev, dtype)
+    mask = torch.sigmoid(_t(rng, 2, ho, wo, 9)).to(dev)
+    g = _t(rng, 2 * ho * wo, 9 * c).to(dev)
+    dc.reset_spill(dev)
+    got = dc.deform_col2im(g, x, off, mask, (3, 3), stride, dilation, dilation)
+    spilled, corners = dc.spill_counts(dev)
+    assert 0 < spilled < corners
+    _adjoint_close(got, dc.deform_col2im_plain(g, x, off, mask, (3, 3), stride, dilation,
+                                               dilation))
+
+
+@pytest.mark.parametrize("c", [129, 256, 520, 1030])
+def test_deform_adjoint_channel_splits(dev, c):
+    """Channels split over a cluster of blocks a tile (128 a block at least,
+    up to 8 blocks): 129 on two blocks, the second holding one channel and
+    no vectors; 256 on two, 520 on five, 1030 on eight of 144, the last
+    short; fractional offsets, bf16 x, a mask."""
+    rng = np.random.RandomState(60 + c)
+    x, off, mask = _dcn_inputs(rng, dev, torch.bfloat16, c, False, True, h=9, w=14)
+    g = _t(rng, 2 * 9 * 14, 9 * c).to(dev)
+    _adjoint_close(dc.deform_col2im(g, x, off, mask), dc.deform_col2im_plain(g, x, off, mask))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

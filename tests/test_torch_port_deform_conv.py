@@ -55,13 +55,13 @@ def _base(n, stride, dilation, size):
     return (np.arange(n) * stride - dilation)[:, None] + np.arange(3) * dilation
 
 
-def make_inputs(stride, dilation, modulated, offsets, seed, dtype="float32"):
-    """numpy inputs: x (2, H, W, CIN), offsets (2, Ho, Wo, 18) in x's dtype's
+def make_inputs(stride, dilation, modulated, offsets, seed, dtype="float32", cin=CIN):
+    """numpy inputs: x (2, H, W, cin), offsets (2, Ho, Wo, 18) in x's dtype's
     values (rounded to bf16 for ``dtype`` bfloat16), mask (2, Ho, Wo, 9) or
-    None, weight OIHW (COUT, CIN, 3, 3), the output's cotangent."""
+    None, weight OIHW (COUT, cin, 3, 3), the output's cotangent."""
     rng = np.random.RandomState(seed)
     ho, wo = dc.out_size(H, W, 3, 3, stride, dilation, dilation)
-    x = rng.randn(2, H, W, CIN).astype(np.float32)
+    x = rng.randn(2, H, W, cin).astype(np.float32)
     if offsets == "fractional":
         # bf16 values (the model's offsets), none an integer
         off = torch.from_numpy(rng.uniform(-3, 3, (2, ho, wo, 18)).astype(np.float32))
@@ -81,7 +81,7 @@ def make_inputs(stride, dilation, modulated, offsets, seed, dtype="float32"):
         bx = _base(wo, stride, dilation, W)[None, None, :, None, :]
         off = np.stack([ty - by, tx - bx], -1).reshape(2, ho, wo, 18).astype(np.float32)
     mask = (1 / (1 + np.exp(-rng.randn(2, ho, wo, 9)))).astype(np.float32) if modulated else None
-    weight = rng.randn(COUT, CIN, 3, 3).astype(np.float32)
+    weight = rng.randn(COUT, cin, 3, 3).astype(np.float32)
     cot = rng.randn(2, ho, wo, COUT).astype(np.float32)
     if dtype == "bfloat16":  # the bf16 values, held as float32
         x, off = (torch.from_numpy(a).bfloat16().float().numpy() for a in (x, off))
@@ -129,7 +129,7 @@ def port_plain(x, off, mask, weight, cot, stride, dilation, dtype="float32"):
     g = torch.from_numpy(cot).reshape(-1, COUT)
     gx, goff, gm = dc.deform_col2im(g @ wmat.t(), xt, ot, mt, (3, 3), stride, dilation,
                                     dilation)
-    gw = (cols.t() @ g).reshape(3, 3, CIN, COUT).permute(3, 2, 0, 1)
+    gw = (cols.t() @ g).reshape(3, 3, x.shape[-1], COUT).permute(3, 2, 0, 1)
     return out, gx, goff, gw, gm
 
 
@@ -169,6 +169,24 @@ def test_plain_adjoint_equals_jax_vjp(stride, dilation, modulated, offsets, dtyp
         if want is None:
             assert got is None
             continue
+        assert tuple(got.shape) == want.shape, name
+        assert np.abs(want).max() > 0, name
+        assert within(got, want, BWD_REL), (name, float(np.abs(got.numpy() - want).max()),
+                                            float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("offsets", OFFSETS)
+@pytest.mark.parametrize("cin", [10, 36])
+def test_plain_adjoint_equals_jax_vjp_at_odd_channels(cin, offsets):
+    """The card's contract cases off the main path, where the adjoint kernel
+    is held against this plain adjoint: C % 4 != 0 (10, no vectors) and C
+    not a multiple of the kernel's 16-channel chunk (10, 36), modulated,
+    bf16, at stride 2 and dilation 2; every gradient against ``jax.vjp``."""
+    x, off, mask, weight, cot = make_inputs(2, 2, True, offsets, 300 + cin, "bfloat16", cin)
+    _, jgx, jgoff, jgw, jgm = jax_run(x, off, mask, weight, cot, 2, 2)
+    _, gx, goff, gw, gm = port_plain(x, off, mask, weight, cot, 2, 2, "bfloat16")
+    for name, got, want in (("x", gx, jgx), ("offsets", goff, jgoff), ("weight", gw, jgw),
+                            ("mask", gm, jgm)):
         assert tuple(got.shape) == want.shape, name
         assert np.abs(want).max() > 0, name
         assert within(got, want, BWD_REL), (name, float(np.abs(got.numpy() - want).max()),

@@ -25,7 +25,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "afigan_tpu")
 CITATION = re.compile(r"^afigan_tpu/[\w/]+\.py:\d+(::\w+ \([\w ,]+\))?$")
 PORT_FILES = sorted(
     glob.glob(os.path.join(REPO, "afigan_tpu_torch", "**", "*.py"), recursive=True)
-) + [os.path.join(REPO, "chip_smoke.py")]
+) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")]
 SUBPACKAGES = ["afigan_tpu_torch." + m for m in (
     "config", "data", "data.loader", "engine.inference", "evaluation", "models",
     "models.swin", "models.bifpn", "models.cascade_roi_heads", "ops.kernels.layer_norm",

@@ -77,6 +77,17 @@ def nms_case(name, seed=0):
         scores = np.round(rng.randn(n), 3).astype(np.float32)
         lv = np.repeat(np.arange(5), [1000, 1000, 1000, 1000, 819]).astype(np.int32)
         return boxes, scores, rng.rand(n) > 0.02, lv, 0.7, 1000
+    if name == "rpn_train":  # the training RPN: 2000 a level over p2-p5, p6's 819
+        n = 4 * 2000 + 819
+        boxes = _scatter(rng, n, (832, 1344), 600)
+        scores = np.round(rng.randn(n), 3).astype(np.float32)
+        lv = np.repeat(np.arange(5), [2000, 2000, 2000, 2000, 819]).astype(np.int32)
+        return boxes, scores, rng.rand(n) > 0.02, lv, 0.7, 2000
+    if name == "res5_train":  # the Res5 path's one level (p4): 2000 in training
+        n = 2000
+        boxes = _scatter(rng, n, (832, 1344), 150)
+        scores = np.round(rng.randn(n), 3).astype(np.float32)
+        return boxes, scores, rng.rand(n) > 0.02, np.zeros(n, np.int32), 0.7, 1000
     if name == "fcos":
         n = 5000
         boxes = _scatter(rng, n, (832, 1344), 200)
@@ -91,8 +102,12 @@ def nms_case(name, seed=0):
     raise KeyError(name)
 
 
-CPU_CASES = ("n1", "n63", "n64", "n65", "n300", "ties", "all_invalid", "at_threshold")
-CARD_CASES = ("rpn", "fcos", "detection", "ties", "n65", "n1000", "all_invalid",
+CPU_CASES = ("n1", "n63", "n64", "n65", "n127", "n129", "n255", "n257", "n300", "ties",
+             "all_invalid", "at_threshold")
+# n127 ... n4097: around the 64-box tile (64 k +- 1), one block's share of
+# tiles (4) and the largest cluster's (16 blocks of 4)
+CARD_CASES = ("rpn", "rpn_train", "res5_train", "fcos", "detection", "ties", "n65", "n127",
+              "n129", "n255", "n257", "n1000", "n4095", "n4097", "all_invalid",
               "at_threshold", "class_offsets")
 
 
