@@ -9,8 +9,8 @@
 // cascade (PERF.md, row 9). The matrix product with the kernel stays outside
 // the kernels (torch.matmul in float32, as the JAX einsum is left to XLA).
 //
-//   deform_im2col (forward), grid (pixel tiles, taps): for every output pixel
-//   p = (b, oy, ox) and tap k = (ky, kx) the sample point
+//   deform_im2col (forward): for every output pixel p = (b, oy, ox) and tap
+//   k = (ky, kx) the sample point
 //     sy = (oy*stride - pad + ky*dil) + dy[p, k],  sx likewise with dx,
 //   its floor (y0, x0) and fractions (ly, lx), the four corners read from
 //   NHWC x as float32 (zero outside the map), the bilinear weights
@@ -20,6 +20,31 @@
 //   The arithmetic is the plain version's, in its order, with __f*_rn so
 //   that no FMA contraction changes a rounding: the columns equal the plain
 //   version's bit for bit.
+//   What bounds it on the H100: bytes. It writes the columns, B*Ho*Wo*K*C
+//   float32 (0.64 GB for the largest conv of a batch of the ResNeSt-101 at
+//   832x1344, 3.46 GB for the batch's 30) against 8 float32 operations an
+//   entry, and reads x, the offsets and the mask once. One block of 288
+//   threads per tile of 4x8 output pixels (TILE_H x TILE_W) of one image at
+//   all K taps and a group of channels (128; halved while the grid holds
+//   fewer than 1024 blocks and a tile would have at most 4 groups). The
+//   block first copies x's window at its channels (the cells that the
+//   tile's samples reach at offsets within a HALO of 2 cells, zero outside
+//   the map) into shared memory with cp.async; meanwhile a thread a (pixel,
+//   tap) pair computes its sample point, weights, mask, columns' offset and
+//   each corner's code (a window cell, a zero outside the map, or a cell of
+//   the map outside the window) once for all of the group's channels, so
+//   that the loop over the channels does no division and reads no offset.
+//   Then the lanes of a pair, 4 channels each at four places a quarter of
+//   the group apart, issue all sixteen corner loads (the window in shared
+//   memory; a corner outside it from device memory, through L1 and L2)
+//   before the sums, and store the columns with __stcs (evict first, so
+//   that the write stream does not push x out of L2), a pair's lanes whole
+//   128-byte lines at a group of 128. The launches count the corners
+//   outside their tile's window (deform_im2col_spill). Left over is a
+//   block's fixed latency (its copies and the pairs' loads before a
+//   barrier, then a chain of dependent loads and stores a lane) and the
+//   short launches' ramp and tail; where most corners fall outside the
+//   window, their loads from L2 bound it by latency.
 //
 //   deform_col2im (backward): from the columns' gradient g = grad_cols[p,
 //   k*C + c] and gm = g * m (g without a mask), the same as jax.vjp of the
@@ -32,12 +57,11 @@
 //   integer coordinate floor gives ly = 0, so the derivative is the forward
 //   difference, as JAX's floor (zero gradient) gives it; no border
 //   convention of mmcv's.
-//   One block per tile of 4x8 output pixels (TILE_H x TILE_W) of one image,
-//   at all K taps, and a share of the channels (at least MIN_CHANNELS, 128;
-//   the blocks of a tile, up to 8, form a thread block cluster). A block
+//   One block per tile of the forward's shape, at all K taps, and a share of
+//   the channels (at least MIN_CHANNELS, 128; the blocks of a tile, up to 8,
+//   form a thread block cluster). A block
 //   first computes each (pixel, tap) pair's sample point and bins the
-//   corners that fall inside its window (the cells that the tile's samples
-//   reach at offsets within a HALO of 2 cells) and have a weight by cell,
+//   corners that fall inside its window and have a weight by cell,
 //   with integer atomics on shared memory;
 //   the corners inside the map but outside the window go on a list. Then,
 //   16 channels at a time, it copies the pairs' column gradient and x's
@@ -56,25 +80,20 @@
 //   each entry written once. x's gradient differs from the plain version's
 //   scatter by float32 summation order, which also changes from run to run
 //   (the bins fill in the atomics' order); a corner of weight 0 adds nothing.
+//   What bounds it on the H100: bytes, the columns' gradient read once (the
+//   columns' size). Its atomics to device memory are one per window cell
+//   that received a share and 4 channels (at most the window-to-tile ratio:
+//   5.2 cells an output pixel at 4x8 with a halo of 2) instead of one per
+//   corner of every pair, 36 a cell. Shared-memory float atomics are
+//   compare-and-swap loops on this card, so the sum into the window is a
+//   gather over the binned corners instead; what is left bounds it by
+//   latency (a block's copies, then its sums, then a barrier, a chunk at a
+//   time, three blocks an SM).
 //
 // Offsets and mask are read through their element strides (the model passes
 // pred[..., :18], a non-contiguous bf16 view of the offset predictor's
 // output), as float32 or bfloat16; x contiguous NHWC, float32 or bfloat16.
-//
-// What bounds it on the H100: bytes. The forward writes the columns,
-// B*Ho*Wo*K*C float32 (0.64 GB for the largest conv of a batch of the
-// ResNeSt-101 at 832x1344) against 8 float32 operations an entry; x is read
-// about K times, mostly from the 50 MB L2. A block of the forward covers a
-// tile of pixels at one tap with 16-byte loads and stores over channels. The
-// backward reads the columns' gradient once (the same size). Its atomics to
-// device memory are one per window cell that received a share and 4
-// channels (at most the window-to-tile ratio: 5.2 cells an output pixel at
-// 4x8 with a halo of 2) instead of one per corner of every pair, 36 a cell.
-// Shared-memory float atomics are compare-and-swap loops on this card, so
-// the sum into the window is a gather over the binned corners instead; what
-// is left bounds it by latency (a block's copies, then its sums, then a
-// barrier, a chunk at a time, three blocks an SM). Fusing the product into
-// the kernels or the tensor cores are later work.
+// Fusing the product into the kernels or the tensor cores are later work.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,24 +144,11 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float* v) {
   }
 }
 
-// the corner at element offset i of p, or zeros where it lies outside the map
-template <typename T, int V>
-__device__ __forceinline__ void corner(const T* __restrict__ p, bool inside, long long i,
-                                       float* v) {
-  if (inside) {
-    load_vec<T, V>(p + i, v);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = 0.f;
-  }
-}
-
 // The sample point of pixel (b, oy, ox) at tap k: corner (y0, x0), fractions
 // and the four bilinear weights, as the plain version computes them.
 struct Tap {
   int y0, x0;
   float ly, lx, hy, hx, w00, w01, w10, w11;
-  bool v00, v01, v10, v11;
 };
 
 __device__ __forceinline__ Tap tap_at(const Geo& g, const Strided& off, int b, int oy, int ox,
@@ -166,75 +172,17 @@ __device__ __forceinline__ Tap tap_at(const Geo& g, const Strided& off, int b, i
   // outside the map): no corner's validity changes
   t.y0 = (int)fminf(fmaxf(fy, -2.f), (float)g.H);
   t.x0 = (int)fminf(fmaxf(fx, -2.f), (float)g.W);
-  const bool iy0 = t.y0 >= 0 && t.y0 < g.H, iy1 = t.y0 + 1 >= 0 && t.y0 + 1 < g.H;
-  const bool ix0 = t.x0 >= 0 && t.x0 < g.W, ix1 = t.x0 + 1 >= 0 && t.x0 + 1 < g.W;
-  t.v00 = iy0 && ix0;
-  t.v01 = iy0 && ix1;
-  t.v10 = iy1 && ix0;
-  t.v11 = iy1 && ix1;
   return t;
 }
 
-// grid (ceil(P / pix), K); each thread one V-vector of channels of one pixel
-template <typename T, int V>
-__global__ void deform_im2col_kernel(const T* __restrict__ x, Strided off, Strided mask,
-                                     bool has_mask, float* __restrict__ cols, Geo g, int pix) {
-  const int k = blockIdx.y;
-  const int K = g.kh * g.kw;
-  const int cg = g.C / V;
-  const long long P = (long long)g.B * g.Ho * g.Wo;
-  const long long p0 = (long long)blockIdx.x * pix;
-  for (int i = threadIdx.x; i < pix * cg; i += blockDim.x) {
-    const long long p = p0 + i / cg;
-    if (p >= P) break;
-    const int c = (i % cg) * V;
-    const int ox = (int)(p % g.Wo);
-    const long long r = p / g.Wo;
-    const int oy = (int)(r % g.Ho), b = (int)(r / g.Ho);
-    const Tap t = tap_at(g, off, b, oy, ox, k);
-    const float m = has_mask ? ld(mask, b, oy, ox, k) : 1.f;
-    float v00[V], v01[V], v10[V], v11[V];
-    const T* img = x + (long long)b * g.H * g.W * g.C + c;
-    corner<T, V>(img, t.v00, ((long long)t.y0 * g.W + t.x0) * g.C, v00);
-    corner<T, V>(img, t.v01, ((long long)t.y0 * g.W + t.x0 + 1) * g.C, v01);
-    corner<T, V>(img, t.v10, ((long long)(t.y0 + 1) * g.W + t.x0) * g.C, v10);
-    corner<T, V>(img, t.v11, ((long long)(t.y0 + 1) * g.W + t.x0 + 1) * g.C, v11);
-    float o[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      float s = __fadd_rn(__fmul_rn(v00[j], t.w00), __fmul_rn(v01[j], t.w01));
-      s = __fadd_rn(s, __fmul_rn(v10[j], t.w10));
-      s = __fadd_rn(s, __fmul_rn(v11[j], t.w11));
-      o[j] = has_mask ? __fmul_rn(s, m) : s;
-    }
-    float* dst = cols + p * ((long long)K * g.C) + (long long)k * g.C + c;
-    if constexpr (V % 4 == 0) {
-#pragma unroll
-      for (int j = 0; j < V; j += 4)
-        *reinterpret_cast<float4*>(dst + j) = make_float4(o[j], o[j + 1], o[j + 2], o[j + 3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) dst[j] = o[j];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// deform_col2im: one block per tile of TILE_H x TILE_W output pixels of one image and
-// a share of the channels, at all K taps; a thread a (pixel, tap) pair, the
-// channels 16 at a time.
+// The tile both kernels take: TILE_H x TILE_W output pixels of one image at
+// all K taps, and the window of x's cells that its samples reach.
 // ---------------------------------------------------------------------------
 
-constexpr int ADJ_THREADS = 288;  // at most: nine warps, a (pixel, tap) pair a thread
 constexpr int TILE_H = 4, TILE_W = 8;  // output pixels a block: 4 rows of 8
 // cells by which a tile's window reaches past its samples at zero offsets
 constexpr int HALO = 2;
-constexpr int MIN_CHANNELS = 128;  // channels a block at least
-constexpr int CHUNK = 16;
-constexpr int MAX_SPLIT = 8;  // blocks a tile at most, a cluster of them, by channels
-constexpr int GS = CHUNK + 4;  // floats a pair's row of the staged gradient
-constexpr int XS = CHUNK + 4;  // elements a cell of x's window
-constexpr int NO_PIXEL = -0x40000000;  // tap slot of a pixel outside the map
 constexpr int OUT_WIN = -1, OUT_MAP = -2;  // a corner's code: else its window cell
 
 // the window of x's cells that a tile's samples reach with offsets within
@@ -251,6 +199,249 @@ __host__ __device__ __forceinline__ Window window_of(const Geo& g, int oy0, int 
   w.ww = (TILE_W - 1) * g.stride + (g.kw - 1) * g.dil + 2 + 2 * HALO;
   return w;
 }
+
+// an asynchronous copy of N (8 or 16) bytes into shared memory, or N zero
+// bytes where `fill` is false (src is then not read)
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem_dst, const void* src, bool fill) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
+  const int n = fill ? N : 0;
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// deform_im2col: one block per tile and a group of channels; a thread
+// FWD_REPS x V channels of a (pixel, tap) pair at a time.
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_THREADS = 288;  // nine warps: a (pixel, tap) pair a thread at 3x3
+constexpr int FWD_GROUP = 128;  // channels a block at most
+constexpr int FWD_MIN_BLOCKS = 1024;  // groups halved below this many blocks
+constexpr int FWD_MAX_GROUPS = 4;  // groups a tile at most, where halved
+constexpr int FWD_REPS = 4;  // vectors a lane, group / FWD_REPS channels apart
+constexpr int FWD_PAD = 16;  // bytes after a cell's channels in the staged window
+constexpr int FAR = -3;  // a corner's code at or below: the map's cell FAR - code
+constexpr int MAX_SMEM = 232448 - 1024;  // dynamic shared memory a block at most
+
+// The forward's corner counts on this device since they were last reset
+// (deform_im2col_spill): the corners inside the map that fell outside their
+// tile's window, and all corners inside the map.
+__device__ unsigned long long im2col_spill[2];
+
+// dynamic shared memory of a forward block, in this order: per pair its four
+// bilinear weights, float4; its corners' codes (a window cell; OUT_MAP, a
+// zero; or at most FAR, a cell of the map outside the window), int4; the
+// offset (p*K + k)*C + c_lo of its columns (-1: a pixel outside the map),
+// long long; x's window at the group's channels, [cell][xs] of T, zero
+// outside the map; per pair its mask, float
+template <typename T>
+__host__ __device__ __forceinline__ long long fwd_smem(long long pairs, long long cells, int xs) {
+  return pairs * (16 + 16 + 8) + cells * xs * (long long)sizeof(T) + pairs * 4;
+}
+
+// a cell's stride in the staged window, in elements: the group's channels
+// and FWD_PAD bytes, a multiple of 16 bytes
+template <typename T>
+__host__ __device__ __forceinline__ int fwd_stride(int group) {
+  return (int)(((group * sizeof(T) + FWD_PAD + 15) / 16 * 16) / sizeof(T));
+}
+
+// N bytes as loaded: one element, or an 8- or 16-byte vector of them
+template <int N>
+struct RawOf;
+template <>
+struct RawOf<2> {
+  using type = unsigned short;
+};
+template <>
+struct RawOf<4> {
+  using type = unsigned;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <>
+struct RawOf<16> {
+  using type = uint4;
+};
+
+// V channels of a corner as loaded: from the window at code cd >= 0 (w: the
+// window at the lane's channel, xs its cell stride), zero at OUT_MAP, else
+// from device memory (gx: the image's x at the lane's channel)
+template <typename T, int V, typename Raw = typename RawOf<V * sizeof(T)>::type>
+__device__ __forceinline__ Raw fetch(const T* w, int xs, const T* __restrict__ gx, int C,
+                                     int cd) {
+  if (cd >= 0) return *reinterpret_cast<const Raw*>(w + cd * xs);
+  if (cd == OUT_MAP) return Raw{};
+  return *reinterpret_cast<const Raw*>(gx + (long long)(FAR - cd) * C);
+}
+
+// V floats to device memory with the streaming hint (evict first): the
+// columns are written once and next read by the product
+template <int V>
+__device__ __forceinline__ void store_stream(float* p, const float* o) {
+  if constexpr (V == 4)
+    __stcs(reinterpret_cast<float4*>(p), make_float4(o[0], o[1], o[2], o[3]));
+  else
+    __stcs(p, o[0]);
+}
+
+// grid: B * tiles_y * tiles_x * groups blocks of FWD_THREADS, each `group`
+// channels (a power of two, FWD_REPS x V at least; the last group may hold
+// fewer); 2^lg lanes a pair, each V channels at l*V + r*group/FWD_REPS;
+// xs the window's cell stride. With VEC, C % 4 == 0 and x's cells are
+// copied 16 bytes at a time (C % 8 == 0 in bf16), x and cols 16-byte aligned.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(FWD_THREADS)
+    deform_im2col_kernel(const T* __restrict__ x, Strided off, Strided mask, bool has_mask,
+                         float* __restrict__ cols, Geo g, int group, int lg, int xs) {
+  constexpr int V = VEC ? 4 : 1;
+  constexpr int CU = VEC ? 16 / (int)sizeof(T) : 1;  // channels a copy into the window
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned s_spilled, s_corners;
+  const int K = g.kh * g.kw, C = g.C;
+  const int groups = (C + group - 1) / group;
+  const int gi = blockIdx.x % groups, tile = blockIdx.x / groups;
+  const int ntx = (g.Wo + TILE_W - 1) / TILE_W, nty = (g.Ho + TILE_H - 1) / TILE_H;
+  const int tx = tile % ntx, rest = tile / ntx;
+  const int ty = rest % nty, b = rest / nty;
+  const int oy0 = ty * TILE_H, ox0 = tx * TILE_W, pairs = TILE_H * TILE_W * K;
+  const Window win = window_of(g, oy0, ox0);
+  const int cells = win.wh * win.ww;
+  const int c_lo = gi * group, cn = min(group, C - c_lo);
+  float4* wts = reinterpret_cast<float4*>(smem);
+  int4* code = reinterpret_cast<int4*>(wts + pairs);
+  long long* dst = reinterpret_cast<long long*>(code + pairs);
+  T* xw = reinterpret_cast<T*>(dst + pairs);
+  float* ms = reinterpret_cast<float*>(xw + (long long)cells * xs);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const T* img = x + (long long)b * g.H * g.W * C + c_lo;
+
+  // x's window at the group's channels into shared memory, zero outside
+  // the map: with VEC 16-byte asynchronous copies, in flight while the pairs
+  // are set up below
+  const int per_cell = (cn + CU - 1) / CU;
+  for (int i = tid; i < cells * per_cell; i += nthreads) {
+    const int cell = i / per_cell, s = (i - cell * per_cell) * CU;
+    const int y = win.wy0 + cell / win.ww, xx = win.wx0 + cell % win.ww;
+    const bool in = y >= 0 && y < g.H && xx >= 0 && xx < g.W;
+    const T* src = in ? img + ((long long)y * g.W + xx) * C + s : x;
+    if constexpr (VEC) {
+      cp_async<16>(xw + cell * xs + s, src, in);
+    } else {
+      const float v = in ? tof(src[0]) : 0.f;
+      if constexpr (sizeof(T) == 2)
+        xw[cell * xs + s] = __float2bfloat16(v);  // the bf16 value itself: exact
+      else
+        xw[cell * xs + s] = v;
+    }
+  }
+  if constexpr (VEC) asm volatile("cp.async.commit_group;" ::: "memory");
+
+  // each pair's sample point, weights, corners and mask, once for the group
+  if (tid == 0) s_spilled = s_corners = 0u;
+  __syncthreads();
+  unsigned spilled = 0u, corners = 0u;
+  for (int q = tid; q < pairs; q += nthreads) {
+    const int pl = q / K, k = q - pl * K;
+    const int oy = oy0 + pl / TILE_W, ox = ox0 + pl % TILE_W;
+    if (oy >= g.Ho || ox >= g.Wo) {
+      dst[q] = -1;
+      continue;
+    }
+    const Tap t = tap_at(g, off, b, oy, ox, k);
+    int cd[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int y = t.y0 + (n >> 1), xx = t.x0 + (n & 1);
+      const int wy = y - win.wy0, wx = xx - win.wx0;
+      const bool inmap = y >= 0 && y < g.H && xx >= 0 && xx < g.W;
+      const bool inwin = wy >= 0 && wy < win.wh && wx >= 0 && wx < win.ww;
+      cd[n] = inwin ? wy * win.ww + wx : (inmap ? FAR - (y * g.W + xx) : OUT_MAP);
+      corners += inmap;
+      spilled += inmap && !inwin;
+    }
+    wts[q] = make_float4(t.w00, t.w01, t.w10, t.w11);
+    code[q] = make_int4(cd[0], cd[1], cd[2], cd[3]);
+    dst[q] = ((((long long)b * g.Ho + oy) * g.Wo + ox) * K + k) * C + c_lo;
+    ms[q] = has_mask ? ld(mask, b, oy, ox, k) : 1.f;
+  }
+  if (gi == 0) {  // the same corners in every group of the tile: counted once
+    spilled = __reduce_add_sync(FULL, spilled);
+    corners = __reduce_add_sync(FULL, corners);
+    if ((tid & 31) == 0 && corners) {
+      atomicAdd(&s_spilled, spilled);
+      atomicAdd(&s_corners, corners);
+    }
+  }
+  if constexpr (VEC) asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+  if (gi == 0 && tid == 0 && s_corners) {
+    atomicAdd(&im2col_spill[0], (unsigned long long)s_spilled);
+    atomicAdd(&im2col_spill[1], (unsigned long long)s_corners);
+  }
+
+  // the columns: 2^lg lanes a pair, V channels at l*V + r*group/FWD_REPS
+  // each, so that the lanes of a pair store whole 128-byte lines at V = 4
+  // and a group of 128; the stores stream past L2
+  using Raw = typename RawOf<V * sizeof(T)>::type;
+  const int step = group / FWD_REPS, lanes = 1 << lg;
+  for (int i = tid; i < (pairs << lg); i += nthreads) {
+    const int q = i >> lg, s = (i & (lanes - 1)) * V;
+    const long long d = dst[q];
+    if (d < 0 || s >= cn) continue;
+    const float4 w = wts[q];
+    const int4 c4 = code[q];
+    const float m = ms[q];
+    Raw v[FWD_REPS][4];  // every corner's load in flight before the sums
+#pragma unroll
+    for (int r = 0; r < FWD_REPS; ++r) {
+      const int sr = s + r * step;
+      if (sr >= cn) break;
+      v[r][0] = fetch<T, V>(xw + sr, xs, img + sr, C, c4.x);
+      v[r][1] = fetch<T, V>(xw + sr, xs, img + sr, C, c4.y);
+      v[r][2] = fetch<T, V>(xw + sr, xs, img + sr, C, c4.z);
+      v[r][3] = fetch<T, V>(xw + sr, xs, img + sr, C, c4.w);
+    }
+#pragma unroll
+    for (int r = 0; r < FWD_REPS; ++r) {
+      const int sr = s + r * step;
+      if (sr >= cn) break;
+      const T* v00 = reinterpret_cast<const T*>(&v[r][0]);
+      const T* v01 = reinterpret_cast<const T*>(&v[r][1]);
+      const T* v10 = reinterpret_cast<const T*>(&v[r][2]);
+      const T* v11 = reinterpret_cast<const T*>(&v[r][3]);
+      float o[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {  // the plain version's order, no contraction
+        float a = __fadd_rn(__fmul_rn(tof(v00[e]), w.x), __fmul_rn(tof(v01[e]), w.y));
+        a = __fadd_rn(a, __fmul_rn(tof(v10[e]), w.z));
+        a = __fadd_rn(a, __fmul_rn(tof(v11[e]), w.w));
+        o[e] = has_mask ? __fmul_rn(a, m) : a;
+      }
+      store_stream<V>(cols + d + sr, o);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// deform_col2im: one block per tile and a share of the channels; a thread a
+// (pixel, tap) pair, the channels 16 at a time.
+// ---------------------------------------------------------------------------
+
+constexpr int ADJ_THREADS = 288;  // at most: nine warps, a (pixel, tap) pair a thread
+constexpr int MIN_CHANNELS = 128;  // channels a block at least
+constexpr int CHUNK = 16;
+constexpr int MAX_SPLIT = 8;  // blocks a tile at most, a cluster of them, by channels
+constexpr int GS = CHUNK + 4;  // floats a pair's row of the staged gradient
+constexpr int XS = CHUNK + 4;  // elements a cell of x's window
+constexpr int NO_PIXEL = -0x40000000;  // tap slot of a pixel outside the map
 
 // 4 channels c.. of x at element offset i, as float32: one 8- or 16-byte load
 // with VEC, else element by element up to C
@@ -277,20 +468,6 @@ __device__ __forceinline__ void add4_global(float* dst, const float* v, float w,
     for (int j = 0; j < 4; ++j)
       if (c + j < C) atomicAdd(dst + j, v[j] * w);
   }
-}
-
-// an asynchronous copy of N (8 or 16) bytes into shared memory, or N zero
-// bytes where `fill` is false (src is then not read)
-template <int N>
-__device__ __forceinline__ void cp_async(void* smem_dst, const void* src, bool fill) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
-  const int n = fill ? N : 0;
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d), "l"(src), "r"(n)
-                 : "memory");
 }
 
 // dynamic shared memory of a block, in this order: per pair (ly, lx, m,
@@ -616,18 +793,47 @@ Geo geo(int B, int H, int W, int C, int Ho, int Wo, int kh, int kw, int stride, 
   return Geo{B, H, W, C, Ho, Wo, kh, kw, stride, pad, dil};
 }
 
-template <typename T, int V>
+template <typename T, bool VEC>
 int launch_im2col(const void* x, const Strided& off, const Strided& mask, bool has_mask,
                   float* cols, const Geo& g, cudaStream_t s) {
-  const int cg = g.C / V;
-  const int threads = 256;
-  const int pix = cg >= threads ? 1 : threads / cg;
-  const long long P = (long long)g.B * g.Ho * g.Wo;
-  const long long blocks = (P + pix - 1) / pix;
-  if (blocks > 2147483647LL || g.kh * g.kw > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)blocks, (unsigned)(g.kh * g.kw));
-  deform_im2col_kernel<T, V><<<grid, threads, 0, s>>>(static_cast<const T*>(x), off, mask,
-                                                      has_mask, cols, g, pix);
+  // a group: a lane's vectors, and whole 16-byte copies of x with VEC
+  constexpr int V = VEC ? 4 : 1, CU = VEC ? 16 / (int)sizeof(T) : 1;
+  constexpr int MIN_GROUP = FWD_REPS * V > CU ? FWD_REPS * V : CU;
+  const long long pairs = (long long)TILE_H * TILE_W * g.kh * g.kw;
+  const long long wh =
+      (long long)(TILE_H - 1) * g.stride + (long long)(g.kh - 1) * g.dil + 2 + 2 * HALO;
+  const long long ww =
+      (long long)(TILE_W - 1) * g.stride + (long long)(g.kw - 1) * g.dil + 2 + 2 * HALO;
+  if (pairs > (1 << 20) || wh * ww > (1 << 20) || (long long)g.H * g.W > (1 << 30))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles =
+      (long long)g.B * ((g.Ho + TILE_H - 1) / TILE_H) * ((g.Wo + TILE_W - 1) / TILE_W);
+  // FWD_GROUP channels a block, or the least power of two that covers C;
+  // halved while the grid holds fewer than FWD_MIN_BLOCKS blocks and the
+  // halves leave a tile at most FWD_MAX_GROUPS groups (each sets the tile's
+  // pairs up again), or while the window would not fit in shared memory
+  int group = MIN_GROUP;
+  while (group < FWD_GROUP && group < g.C) group *= 2;
+  while (group > MIN_GROUP && tiles * ((g.C + group - 1) / group) < FWD_MIN_BLOCKS &&
+         (g.C + group / 2 - 1) / (group / 2) <= FWD_MAX_GROUPS)
+    group /= 2;
+  long long smem = fwd_smem<T>(pairs, wh * ww, fwd_stride<T>(group));
+  while (smem > MAX_SMEM && group > MIN_GROUP) {
+    group /= 2;
+    smem = fwd_smem<T>(pairs, wh * ww, fwd_stride<T>(group));
+  }
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const long long blocks = tiles * ((g.C + group - 1) / group);
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  int lg = 0;
+  while ((FWD_REPS * V) << lg < group) ++lg;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        deform_im2col_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  deform_im2col_kernel<T, VEC><<<(unsigned)blocks, FWD_THREADS, (size_t)smem, s>>>(
+      static_cast<const T*>(x), off, mask, has_mask, cols, g, group, lg, fwd_stride<T>(group));
   return (int)cudaGetLastError();
 }
 
@@ -695,13 +901,28 @@ extern "C" int deform_im2col(const void* x, int xc, const void* off, long long o
   const Strided m{mask, msb, msy, msx, msc, mc};
   const bool hm = mask != nullptr;
   float* c = static_cast<float*>(cols);
+  // 4 channels a lane as one vector, x's cells copied 16 bytes at a time
   const bool vec = aligned16(x) && aligned16(cols);
   if (xc == 0) {
-    if (vec && C % 4 == 0) return launch_im2col<float, 4>(x, o, m, hm, c, g, s);
-    return launch_im2col<float, 1>(x, o, m, hm, c, g, s);
+    if (vec && C % 4 == 0) return launch_im2col<float, true>(x, o, m, hm, c, g, s);
+    return launch_im2col<float, false>(x, o, m, hm, c, g, s);
   }
-  if (vec && C % 8 == 0) return launch_im2col<__nv_bfloat16, 8>(x, o, m, hm, c, g, s);
-  return launch_im2col<__nv_bfloat16, 1>(x, o, m, hm, c, g, s);
+  if (vec && C % 8 == 0) return launch_im2col<__nv_bfloat16, true>(x, o, m, hm, c, g, s);
+  return launch_im2col<__nv_bfloat16, false>(x, o, m, hm, c, g, s);
+}
+
+// The forward's corner counts on the current device since they were last
+// reset (two uint64: the corners inside the map that fell outside their
+// tile's window, and all corners inside the map): copied into `counts` (device
+// memory, nullable), then zeroed if `reset`, in order on `stream`.
+extern "C" int deform_im2col_spill(void* counts, int reset, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* at = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&at, im2col_spill);
+  if (e == cudaSuccess && counts != nullptr)
+    e = cudaMemcpyAsync(counts, at, sizeof(im2col_spill), cudaMemcpyDeviceToDevice, s);
+  if (e == cudaSuccess && reset) e = cudaMemsetAsync(at, 0, sizeof(im2col_spill), s);
+  return (int)e;
 }
 
 // grad_cols (B*Ho*Wo, K*C) float32 contiguous; gx (B, H, W, C) float32

@@ -135,6 +135,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         "nms": {"nms_forward": [P, P, P, F, I, I, I, P, P], "nms_max_n": [],
                 "nms_plan": [I, I, P]},
         "deform_conv": {"deform_im2col": [P, I, *strided, *strided, P, *[I] * 11, P],
+                        "deform_im2col_spill": [P, I, P],
                         "deform_col2im": [P, I, *strided, *strided, P, P, P, P, *[I] * 11,
                                           P, P]},
     }

@@ -8,7 +8,11 @@ through XLA's autodiff. The conv is split as JAX writes it:
 * ``deform_im2col``: the float32 columns (B*Ho*Wo, K*Cin), each output
   pixel's bilinear samples at ``p + p_k + offset_k`` (zeros outside the map),
   times the modulation mask, in (tap, channel) order, which is that of
-  ``weight.permute(2, 3, 1, 0).reshape(K*Cin, Cout)``;
+  ``weight.permute(2, 3, 1, 0).reshape(K*Cin, Cout)``. The kernel samples a
+  tile of output pixels at a time from x's window staged in shared memory
+  (the adjoint's 4x8 tile and window); a corner outside the window is read
+  from device memory, and the launches count those corners
+  (``im2col_spill_counts``);
 * the product of the columns with that matrix, ``torch.matmul`` in float32
   (the JAX einsum);
 * ``deform_col2im``: from the columns' gradient, the gradients of x, of the
@@ -247,10 +251,15 @@ def deform_col2im(grad_cols, x, offsets, mask=None, kernel_size=(3, 3), stride: 
     return grad_x, grad_off, grad_mask
 
 
-def _spill_counter(device):
+def _card(device):
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _spill_counter(device):
+    device = _card(device)
     t = _SPILL.get(device)
     if t is None:
         t = _SPILL[device] = torch.zeros(2, dtype=torch.int64, device=device)
@@ -269,6 +278,26 @@ def spill_counts(device) -> Tuple[int, int]:
     card)."""
     spilled, corners = _spill_counter(device).tolist()
     return int(spilled), int(corners)
+
+
+def im2col_spill_counts(device, reset: bool = False) -> Tuple[int, int]:
+    """(corners inside the map that fell outside their tile's window, all
+    corners inside the map) over the sampling kernel's launches on
+    ``device`` since the counts were last reset: the share that the kernel
+    read from device memory instead of its staged window (reads the card;
+    ``reset`` zeroes them after the reading)."""
+    device = _card(device)
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        _build.check(_build.load("deform_conv").deform_im2col_spill(
+            counts.data_ptr(), int(reset), _build.stream_ptr(counts)), "deform_im2col_spill")
+    spilled, corners = counts.tolist()
+    return int(spilled), int(corners)
+
+
+def reset_im2col_spill(device) -> None:
+    """Zero the sampling kernel's corner counts on ``device``."""
+    im2col_spill_counts(device, reset=True)
 
 
 def weight_matrix(weight):

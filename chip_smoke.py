@@ -50,8 +50,10 @@ CPU):
               rows -1, 0, H-1, H), and off the path at C 36 and 10, stride
               and dilation 2: the columns equal to the plain gather's bit
               for bit, the three gradients within 1e-4 of their largest entry,
-              the share of the adjoint's corners outside their tile's window;
-              kernel, plain and bound ms of the main path's case by events
+              the share of each kernel's corners outside their tile's window;
+              the forward's device time against its bound at each path shape
+              and offset set; kernel, plain and bound ms of the main path's
+              case by events
   3. slice    Mask R-CNN R-50-FPN + AF interpolator at full width (bf16, random
               weights from a seeded torch.Generator) through ``build_model``
               and ``predict`` on random-pixel batches of an 832x1344 canvas;
@@ -119,7 +121,8 @@ CPU):
               5 batches each, launches asserted (30 ``deform_conv`` a batch of
               the deformable ResNeSt); one R-18 batch and one deformable batch
               held (every deformable conv's columns bit for bit); the
-              deformable convs' device time and the batch's peak memory in a
+              deformable convs' device time, the sampling kernel's 30
+              launches against their bound, and the batch's peak memory in a
               profiled batch
   8. tta      the flagship YAML unchanged (Swin-L + BiFPN x7 + Cascade R-CNN;
               9 scales x flip) through ``engine/tta.py::run_tta_inference`` over
@@ -199,7 +202,8 @@ CPU):
               offset predictors and deformable weights moved; then the offset
               predictors set off zero (``offsets_on``), one more step held and
               3 steps counted one by one, losses finite; ms a step and peak
-              memory
+              memory; in the profiled step the sampling kernel's 30 launches
+              against their bound
  10e. train_ddp  data-parallel training through ``engine/launch.py``: two ranks
               spawned on this one card over gloo (``device="cuda:0"``,
               ``backend="gloo"``: NCCL refuses two ranks on one device; gloo
@@ -1663,6 +1667,57 @@ def _dcn_work(x, n, c, modulated, backward):
     return nbytes, n * 9 * c * (32 if modulated else 22)
 
 
+def _dcn_bound_ms(work):
+    """The least time of (bytes, float32 operations) on the card, ms."""
+    return 1000 * max(work[0] / HBM_BYTES_PER_S, work[1] / PEAK_OPS_PER_S["float32"])
+
+
+class SamplingWork:
+    """Within the block, the deformable sampling's calls counted and the
+    bound of their work summed (``_dcn_work`` of each call's own inputs):
+    ``calls``, ``bound_ms``; ``line(kernels)`` holds it against the device
+    time of the sampling kernel's records in a profiler's ``key_averages``."""
+
+    def __enter__(self):
+        from afigan_tpu_torch.ops.kernels import deform_conv as dc
+
+        self.calls, self.bound_ms, orig = 0, 0.0, dc.deform_im2col
+        self._orig = orig
+
+        def record(x, offsets, mask=None, *conv, **kw):
+            self.calls += 1
+            n = offsets.shape[0] * offsets.shape[1] * offsets.shape[2]
+            self.bound_ms += _dcn_bound_ms(_dcn_work(x, n, x.shape[-1], mask is not None,
+                                                     False))
+            return orig(x, offsets, mask, *conv, **kw)
+
+        dc.deform_im2col = record
+        return self
+
+    def __exit__(self, *exc):
+        from afigan_tpu_torch.ops.kernels import deform_conv as dc
+
+        dc.deform_im2col = self._orig
+
+    def line(self, kernels):
+        samp = [e for e in kernels if "deform_im2col_kernel" in e.key]
+        ms = sum(e.self_device_time_total for e in samp) / 1000.0
+        return (f"the sampling kernel's {sum(e.count for e in samp)} launches ({self.calls} "
+                f"calls) {ms:.3f} ms on the device, bound {self.bound_ms:.3f} ms from their "
+                f"own inputs: {100 * self.bound_ms / max(ms, 1e-9):.1f} % of the bound")
+
+
+def _sampling_device_ms(fn, tries=2):
+    """The sampling kernel's device time a call of ``fn`` (ms) under
+    torch.profiler, or None where no session held a record of it."""
+    for _ in range(tries):
+        try:
+            return device_ms_per_call(fn, ("deform_im2col_kernel",), reps=10)
+        except AssertionError:
+            continue
+    return None
+
+
 def kernels_deform_conv(results):
     """The deformable conv's two kernels against their plain versions at the
     six shapes of ``DCN_SHAPES`` (batch 2, bf16 x, the offsets a bf16 view of
@@ -1671,9 +1726,12 @@ def kernels_deform_conv(results):
     ``dcn_offsets``, and at the contract's shapes off the path
     (``DCN_CONTRACT``): the columns bit for bit, the three gradients of the
     adjoint (on a random columns' gradient) within ``TOL["dcn_bwd"]``, whose
-    bound must reject x's gradient taken without the mask; the share of the
-    adjoint's corners that fell outside their tile's window at each. The main
-    path's case (modulated, fractional) timed by events, kernel and plain;
+    bound must reject x's gradient taken without the mask; the share of each
+    kernel's corners that fell outside their tile's window at each (the
+    forward's ``im2col_spill_counts``, the adjoint's ``spill_counts``); at
+    the path's shapes, modulated, the forward's device time against its bound
+    under each offset set. The main path's case (modulated, fractional) timed
+    by events, kernel and plain;
     the forward into ``resnest_dcn``'s tally, the backward into
     ``train_dcn``'s, each with its convs a batch."""
     import torch
@@ -1708,8 +1766,10 @@ def kernels_deform_conv(results):
                 fp = lambda: deform_im2col_plain(x, off, mask, *conv)  # noqa: E731
                 bk = lambda: deform_col2im(gcols, x, off, mask, *conv)  # noqa: E731
                 bp = lambda: deform_col2im_plain(gcols, x, off, mask, *conv)  # noqa: E731
+                dc.reset_im2col_spill(dev)
                 e_f = compare(f"deform_conv {tag} columns", fk(), fp(), "dcn_fwd", "bfloat16",
                               quiet=True)
+                f_spilled, f_corners = dc.im2col_spill_counts(dev)
                 dc.reset_spill(dev)
                 got = bk()
                 spilled, corners = dc.spill_counts(dev)
@@ -1723,9 +1783,17 @@ def kernels_deform_conv(results):
                         continue
                     e_b = max(e_b, compare(f"deform_conv_bwd {tag} grad_{name}", g_k, g_p,
                                            "dcn_bwd", "bfloat16", quiet=True))
-                msg = (f"  deform_conv {tag}: columns equal bit for bit; adjoint max_abs_err "
-                       f"{e_b:.3e}, {spilled} of {corners} corners inside the map outside "
-                       f"their tile's window ({100 * spilled / max(corners, 1):.2f} %)")
+                msg = (f"  deform_conv {tag}: columns equal bit for bit, the forward's corners "
+                       f"inside the map outside their tile's window {f_spilled} of {f_corners} "
+                       f"({100 * f_spilled / max(f_corners, 1):.2f} %); adjoint max_abs_err "
+                       f"{e_b:.3e}, its corners outside the window {spilled} of {corners} "
+                       f"({100 * spilled / max(corners, 1):.2f} %)")
+                if modulated and count:  # the path's case: the forward against its bound
+                    bf = _dcn_bound_ms(_dcn_work(x, n, c, True, False))
+                    fd = _sampling_device_ms(fk)
+                    msg += (f"; forward kernel {fd:.4f} ms on the device, bound {bf:.4f} ms: "
+                            f"{100 * bf / fd:.1f} % of the bound" if fd else
+                            "; forward kernel's device time not measured (no whole trace)")
                 if modulated and kind == "fractional" and count:
                     # the bound must reject x's gradient with the mask left out
                     reject(f"deform_conv_bwd {tag} grad_x without the mask",
@@ -1734,9 +1802,8 @@ def kernels_deform_conv(results):
                     tk, tp = median_ms(fk), median_ms(fp, iters=3, warmup=1, inner=1)
                     tbk, tbp = median_ms(bk), median_ms(bp, iters=3, warmup=1, inner=1)
                     wf, wb = _dcn_work(x, n, c, True, False), _dcn_work(x, n, c, True, True)
-                    bf = 1000 * max(wf[0] / HBM_BYTES_PER_S, wf[1] / PEAK_OPS_PER_S["float32"])
-                    bb = 1000 * max(wb[0] / HBM_BYTES_PER_S, wb[1] / PEAK_OPS_PER_S["float32"])
-                    msg += (f"; forward kernel {tk:.3f} ms plain {tp:.3f} ms bound {bf:.3f} ms, "
+                    bb = _dcn_bound_ms(wb)
+                    msg += (f"; by events forward kernel {tk:.3f} ms plain {tp:.3f} ms, "
                             f"backward kernel {tbk:.3f} ms plain {tbp:.3f} ms bound {bb:.3f} ms "
                             f"(x{count} a batch)")
                     tally(results, "deform_conv", "resnest_dcn", "bfloat16").add(
@@ -3352,7 +3419,8 @@ def phase_slice_proposals(results, n_batches=10):
 def deform_profile(model, batch):
     """One batch of a deformable model under the profiler: the device time
     of the deformable convs' gathers and products (their ``deform_conv``
-    range), their calls, and the batch's peak memory."""
+    range), their calls, the sampling kernel's launches against the bound of
+    their own inputs, and the batch's peak memory."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3364,7 +3432,8 @@ def deform_profile(model, batch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for session in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                SamplingWork() as work:
             t0 = time.perf_counter()
             predict(model, batch)
             torch.cuda.synchronize()
@@ -3380,7 +3449,6 @@ def deform_profile(model, batch):
                 if e.name == "deform_conv" and e.device_type == DeviceType.CPU)
     ms = range_device_ms(prof, ("deform_conv",))
     busy = sum(ms.values())
-    kernel_ms = sum(e.self_device_time_total for e in sampling) / 1000.0
     if calls != n or ms["deform_conv"] <= 0:
         raise AssertionError(f"deform profile: {calls} deform_conv ranges of {n} modules, "
                              f"{ms['deform_conv']} ms")
@@ -3388,9 +3456,9 @@ def deform_profile(model, batch):
         f"device (their deform_conv ranges; the plain torch gather took 63.83 ms there on "
         f"an NVIDIA H100 80GB HBM3 at 700 W), "
         f"{100 * ms['deform_conv'] / max(busy, 1e-9):.1f} % of the batch's "
-        f"{busy:.1f} ms busy; of it the sampling kernel {kernel_ms:.2f} ms in "
-        f"{sum(e.count for e in sampling)} launches; wall {1000 * wall:.1f} ms, profiler on; "
-        f"peak memory of the batch {peak:.2f} GiB")
+        f"{busy:.1f} ms busy; wall {1000 * wall:.1f} ms, profiler on; peak memory of the "
+        f"batch {peak:.2f} GiB")
+    log("  resnest_dcn profile: " + work.line(sampling))
 
 
 DCN_YAML = "inference/AFI-GAN_cascade_mask_rcnn_ResNeSt101_FPN.yaml"
@@ -3616,7 +3684,8 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
     for session in range(3):
         reset_launches()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                SamplingWork() as work:
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
@@ -3643,6 +3712,8 @@ def train_phase(results, path, make_cfg, canvas, per_step, pool_sizes, prepare=N
         if any(k in e.key for k in ("roi_pool", "nms_", "deform_")):
             log(f"  port kernel {e.self_device_time_total / 1000:9.3f} ms x{e.count:<5d} "
                 f"{e.key[:90]}")
+    if work.calls:
+        log(f"  {path} profile: " + work.line(kernels))
     # the pool's backward launch by launch, in the order autograd ran them
     bwd = [e.self_device_time_total / 1000.0 for e in prof.events()
            if e.device_type == DeviceType.CUDA and "roi_pool_bwd_kernel" in e.name]

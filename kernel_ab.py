@@ -1,4 +1,4 @@
-"""The NMS and deformable-adjoint kernels of this checkout against another
+"""The NMS and deformable conv kernels of this checkout against another
 checkout's, on the card, in one process.
 
     python3 kernel_ab.py OTHER [--rounds N]
@@ -7,22 +7,28 @@ OTHER is the root of another checkout of the repo (for example the parent
 commit, unpacked with ``git archive``); its ``afigan_tpu_torch`` is loaded
 under another name and builds its kernels into OTHER/build. Both sides run
 through their public wrappers, ``ops/kernels/nms.py::nms_keep_sorted`` and
-``ops/kernels/deform_conv.py::deform_col2im``, on the same inputs:
+``ops/kernels/deform_conv.py::deform_im2col`` / ``deform_col2im``, on the
+same inputs:
 
 * NMS at the paths' sizes (``tests/torch_port_nms_cases.py``: the RPN at
   inference and in training, the Res5 path's one level, FCOS, detection),
   the keep masks of both sides equal up to the stop;
-* the adjoint at the six shapes of ``chip_smoke.DCN_SHAPES`` under
-  fractional and zero offsets, and on the adjoint calls of two
-  ``train_dcn`` steps after ``offsets_on`` that ``chip_smoke.py`` saved
-  (``chip_smoke.DCN_CALLS``), where that file is present; each side within
-  ``TOL["dcn_bwd"]`` of the plain version.
+* the sampling (``deform_im2col``) at the six shapes of
+  ``chip_smoke.DCN_SHAPES`` under fractional, zero and integer offsets,
+  each side's columns equal to the plain version's bit for bit, and the
+  share of this side's corners outside their tile's window;
+* the adjoint at those shapes under fractional and zero offsets, each side
+  within ``TOL["dcn_bwd"]`` of the plain version;
+* both on the calls of two ``train_dcn`` steps after ``offsets_on`` that
+  ``chip_smoke.py`` saved (``chip_smoke.DCN_CALLS``: the adjoint's x shape,
+  offsets and mask, which are the forward's too), where that file is present.
 
-Each NMS call, and the adjoint's launches of a step at each shape, are
-timed by the device time of every kernel they launch (the adjoint's
+Each NMS call, and each kernel's launches of a batch or step at each shape,
+are timed by the device time of every kernel they launch (the adjoint's
 zero-filled scratch included) and by CUDA events, in turns other, this,
-this, other. Prints the card's name and power limit first; compare two
-checkouts only within one call.
+this, other; the sums over a batch's or step's 30 launches follow. Prints
+the card's name and power limit first; compare two checkouts only within
+one call.
 """
 
 from __future__ import annotations
@@ -230,6 +236,62 @@ def ab_dcn(cs, other, rounds, what, groups):
           f"({100 * spilled / max(corners, 1):.2f} %)", flush=True)
 
 
+def ab_dcn_fwd(cs, other, rounds, what, groups):
+    """The sampling's launches of a batch (or step), shape by shape
+    (``groups`` as ``ab_dcn``'s: the forward takes each call's arguments
+    after the columns' gradient), both sides equal to the plain version bit
+    for bit; the times of each shape's launches and of all of them, and the
+    share of this side's corners outside their tile's window."""
+    import torch
+
+    from afigan_tpu_torch.ops.kernels import deform_conv as dc
+
+    dev = torch.device("cuda")
+    step = {k: {"other": np.zeros(2 * rounds), "this": np.zeros(2 * rounds)}
+            for k in ("device", "events")}
+    spilled = corners = launches = 0
+    for label, calls in groups:
+        for i, args in enumerate(calls):
+            if i and args is calls[i - 1]:
+                continue
+            want = dc.deform_im2col_plain(*args[1:])
+            for tag, fn in (("other", other.deform_im2col), ("this", dc.deform_im2col)):
+                if not torch.equal(fn(*args[1:]), want):
+                    raise AssertionError(f"dcn_fwd {what} {label} {tag}: the columns differ "
+                                         "from the plain version's")
+            del want
+        dc.reset_im2col_spill(dev)
+        for args in calls:
+            dc.deform_im2col(*args[1:])
+        s, c = dc.im2col_spill_counts(dev)
+        spilled, corners, launches = spilled + s, corners + c, launches + len(calls)
+
+        def run(fn, calls=calls):
+            for args in calls:
+                fn(*args[1:])
+
+        fns = {"other": lambda: run(other.deform_im2col),  # noqa: E731
+               "this": lambda: run(dc.deform_im2col)}  # noqa: E731
+        ev, dv = turns(fns, rounds, cs, inner=1)
+        for tag in ("other", "this"):
+            step["device"][tag] += np.asarray(dv[tag])
+            step["events"][tag] += np.asarray(ev[tag])
+        n = len(calls)
+        print(f"ab dcn_fwd {what} {label} (x{n}): us a launch on the device other "
+              f"{fmt(np.asarray(dv['other']) / n)} this {fmt(np.asarray(dv['this']) / n)}; "
+              f"by events other {fmt(np.asarray(ev['other']) / n)} this "
+              f"{fmt(np.asarray(ev['this']) / n)}; corners outside the window (this) "
+              f"{100 * s / max(c, 1):.2f} %", flush=True)
+        torch.cuda.empty_cache()
+    print(f"ab dcn_fwd {what}: the {launches} launches, ms on the device other "
+          f"{' '.join(f'{t:.3f}' for t in step['device']['other'])} this "
+          f"{' '.join(f'{t:.3f}' for t in step['device']['this'])}; by events other "
+          f"{' '.join(f'{t:.3f}' for t in step['events']['other'])} this "
+          f"{' '.join(f'{t:.3f}' for t in step['events']['this'])}; corners inside the map "
+          f"outside their tile's window (this) {spilled} of {corners} "
+          f"({100 * spilled / max(corners, 1):.2f} %)", flush=True)
+
+
 def main(argv=None):
     import torch
 
@@ -247,13 +309,20 @@ def main(argv=None):
 
     other_nms, other_dc = load_checkout(args.other)
     ab_nms(cs, other_nms, args.rounds)
-    for kind in ("fractional", "zero"):
-        ab_dcn(cs, other_dc, args.rounds, kind, dcn_synthetic(cs, kind))
+    for kind in ("fractional", "zero", "integer"):
+        groups = dcn_synthetic(cs, kind)
+        ab_dcn_fwd(cs, other_dc, args.rounds, kind, groups)
+        if kind != "integer":
+            ab_dcn(cs, other_dc, args.rounds, kind, groups)
+        del groups
     if cs.DCN_CALLS.exists():
         import torch
 
         for what, saved in torch.load(cs.DCN_CALLS).items():
-            ab_dcn(cs, other_dc, args.rounds, f"train_dcn {what}", dcn_saved(saved))
+            groups = dcn_saved(saved)
+            ab_dcn_fwd(cs, other_dc, args.rounds, f"train_dcn {what}", groups)
+            ab_dcn(cs, other_dc, args.rounds, f"train_dcn {what}", groups)
+            del groups
     else:
         print(f"ab dcn_bwd: no saved step at {cs.DCN_CALLS} (chip_smoke.py's phase "
               "train_dcn saves one)", flush=True)

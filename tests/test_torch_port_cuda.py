@@ -34,6 +34,11 @@ within 1e-4 of its largest entry (float32 atomics sum in another order than
 channels split over clusters of 2 to 8 blocks, and where one tile's corners
 fall both inside and outside its window (the spill path, counted);
 and ``DeformConv2dFunction`` on the card against autograd of the plain conv.
+The sampling kernel also on tiles that the map's edge cuts (a map smaller
+than one tile), at C = 10, 36 and 1030, stride and dilation 2, and where
+every corner lies outside its tile's window or outside the map; its count of
+the corners it read from device memory instead of its window equals
+``_spill_plain``'s, from the same tile and halo.
 """
 
 import ctypes
@@ -822,6 +827,119 @@ def test_deform_conv_kernels_equal_plain(dev, dtype, c, integer, modulated):
             continue
         err = float((k - w).abs().max())
         assert err <= 1e-4 * float(w.abs().max()), err
+
+
+# the sampling kernel's tile and window (``TILE_H``, ``TILE_W`` and ``HALO``
+# in csrc/deform_conv.cu), for the exact count of the corners it reads from
+# device memory instead of its staged window
+DCN_TILE, DCN_HALO = (4, 8), 2
+
+
+def _spill_plain(off, h, w, stride, dilation):
+    """(corners inside the map outside their tile's window, all corners
+    inside the map) of a 3x3 sampling at ``off`` over an h x w map."""
+    th, tw = DCN_TILE
+    _, ho, wo, _ = off.shape
+    y0, x0, _, _ = dc.sample_grid(off.float().cpu(), h, w, 3, 3, stride, dilation, dilation)
+    wy0 = ((torch.arange(ho) // th) * th * stride - dilation - DCN_HALO)[:, None, None]
+    wx0 = ((torch.arange(wo) // tw) * tw * stride - dilation - DCN_HALO)[None, :, None]
+    wh = (th - 1) * stride + 2 * dilation + 2 + 2 * DCN_HALO
+    ww = (tw - 1) * stride + 2 * dilation + 2 + 2 * DCN_HALO
+    spilled = corners = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            y, x = y0 + dy, x0 + dx
+            inmap = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+            inwin = (y >= wy0) & (y < wy0 + wh) & (x >= wx0) & (x < wx0 + ww)
+            corners += int(inmap.sum())
+            spilled += int((inmap & ~inwin).sum())
+    return spilled, corners
+
+
+def _im2col_counted(x, off, mask, conv):
+    """The sampling kernel's columns, its launch counted, and its corner
+    counts (spilled, all inside the map)."""
+    dev = x.device
+    dc.reset_im2col_spill(dev)
+    n0 = LAUNCHES["deform_conv"]
+    cols = dc.deform_im2col(x, off, mask, *conv)
+    assert LAUNCHES["deform_conv"] == n0 + 1
+    return cols, dc.im2col_spill_counts(dev)
+
+
+@pytest.mark.parametrize("modulated", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hw,c,stride,dilation", [
+    ((3, 5), 16, 1, 1),      # a map smaller than one 4x8 tile
+    ((13, 18), 36, 1, 1),    # neither side a multiple of the tile; bf16 one channel a lane
+    ((9, 14), 10, 1, 1),     # C % 4 != 0: one channel a lane
+    ((9, 14), 1030, 1, 1),   # C not a multiple of the block's channel group
+    ((27, 35), 64, 2, 1),
+    ((27, 35), 64, 1, 2),
+    ((15, 17), 24, 2, 2),
+])
+def test_deform_im2col_tiles_equal_plain(dev, hw, c, stride, dilation, dtype, modulated):
+    """The sampling kernel bit for bit against the plain gather on ragged
+    tiles, channel counts off the vector width and off the group, stride
+    and dilation 2, float32 and bf16 x, a mask or none, the offsets a view
+    of a (B, Ho, Wo, 27) tensor: fractional offsets in [-3, 3), whose
+    corners outside their tile's window the kernel counts exactly, and zero
+    offsets, whose corners all lie in the window."""
+    rng = np.random.RandomState(70 + c + 3 * stride + dilation)
+    (h, w), conv = hw, ((3, 3), stride, dilation, dilation)
+    ho, wo = dc.out_size(h, w, 3, 3, stride, dilation, dilation)
+    x = _t(rng, 2, h, w, c).to(dev, dtype)
+    pred = torch.zeros(2, ho, wo, 27, device=dev, dtype=dtype)
+    mask = torch.sigmoid(_t(rng, 2, ho, wo, 9)).to(dev) if modulated else None
+    for fractional in (True, False):
+        if fractional:
+            pred[..., :18] = torch.from_numpy(
+                rng.uniform(-3, 3, (2, ho, wo, 18)).astype(np.float32)).to(dev, dtype)
+        else:
+            pred.zero_()
+        off = pred[..., :18]
+        assert not off.is_contiguous()
+        cols, counts = _im2col_counted(x, off, mask, conv)
+        assert torch.equal(cols, dc.deform_im2col_plain(x, off, mask, *conv))
+        assert counts == _spill_plain(off, h, w, stride, dilation)
+        if not fractional:
+            assert counts[0] == 0 < counts[1]
+
+
+@pytest.mark.parametrize("where", ["outside_window", "outside_map"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_deform_im2col_far_corners(dev, where, dtype):
+    """Every corner outside its tile's window but inside the map (each
+    sample moved half the map's height away: read from device memory, all
+    counted), or every corner outside the map (zero columns, none
+    counted); bit for bit against the plain gather, with a mask."""
+    rng = np.random.RandomState(80)
+    h, w, c = 21, 29, 40
+    x = _t(rng, 2, h, w, c).to(dev, dtype)
+    oy = torch.arange(h, dtype=torch.float32)[None, :, None, None, None]
+    ky = (torch.arange(3, dtype=torch.float32) - 1)[None, None, None, :, None]
+    off = torch.zeros(2, h, w, 3, 3, 2)
+    if where == "outside_window":
+        # rows oy < 11 sample 10 rows below, the others 11 rows above: 7 or
+        # more rows past the 11-row window of any 4-row tile
+        target = torch.where(oy < 11, oy + 10.25, oy - 10.75)
+        off[..., 0] = (target - oy - ky).expand(2, h, w, 3, 3)
+        off[..., 1] = torch.from_numpy(rng.uniform(-1, 1, (2, h, w, 3, 3)).astype(np.float32))
+    else:
+        off[..., 0] = float(h + 5)
+        off[..., 1] = torch.from_numpy(rng.uniform(-1, 1, (2, h, w, 3, 3)).astype(np.float32))
+    pred = torch.zeros(2, h, w, 27, device=dev, dtype=dtype)
+    pred[..., :18] = off.reshape(2, h, w, 18).to(dev, dtype)
+    offv = pred[..., :18]
+    mask = torch.sigmoid(_t(rng, 2, h, w, 9)).to(dev)
+    conv = ((3, 3), 1, 1, 1)
+    cols, (spilled, corners) = _im2col_counted(x, offv, mask, conv)
+    assert torch.equal(cols, dc.deform_im2col_plain(x, offv, mask, *conv))
+    assert (spilled, corners) == _spill_plain(offv, h, w, 1, 1)
+    if where == "outside_window":
+        assert spilled == corners > 0
+    else:
+        assert corners == 0 and not bool(cols.any())
 
 
 def _adjoint_close(got, want):
