@@ -1,5 +1,7 @@
-"""COCO run-length-encoding (RLE) mask codec — pure numpy (the port's copy
-of ``afigan_tpu/evaluation/rle.py`` without its C++ fast path).
+"""COCO run-length-encoding (RLE) mask codec (the port's copy of
+``afigan_tpu/evaluation/rle.py``): each entry takes the port's native library
+(``afigan_tpu_torch/native``) first and its numpy path where the library
+cannot be built.
 
 pycocotools is not available in this environment, so the framework ships
 its own implementation of the COCO mask format (the reference relies on
@@ -19,10 +21,17 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from ..native import (native_counts_to_string, native_decode, native_encode_counts,
+                      native_rle_iou, native_string_to_counts)
+
 
 def mask_to_rle_counts(mask: np.ndarray) -> List[int]:
     """Binary (H, W) mask -> RLE counts (column-major, zeros first)."""
-    # binarize first: any nonzero is foreground (0/255 masks etc.)
+    native = native_encode_counts(np.asarray(mask))
+    if native is not None:
+        return native
+    # binarize first: any nonzero is foreground (0/255 masks etc.), as the
+    # native path does
     flat = (np.asfortranarray(mask).ravel(order="F") != 0).astype(np.uint8)
     n = flat.size
     if n == 0:
@@ -35,6 +44,9 @@ def mask_to_rle_counts(mask: np.ndarray) -> List[int]:
 
 
 def rle_counts_to_mask(counts: Sequence[int], h: int, w: int) -> np.ndarray:
+    native = native_decode(list(counts), h, w)
+    if native is not None:
+        return native
     flat = np.zeros(h * w, dtype=np.uint8)
     pos = 0
     val = 0
@@ -48,6 +60,9 @@ def rle_counts_to_mask(counts: Sequence[int], h: int, w: int) -> np.ndarray:
 
 def counts_to_string(counts: Sequence[int]) -> str:
     """pycocotools rleToString: delta + base-32 varint, chars offset 48."""
+    native = native_counts_to_string(list(counts))
+    if native is not None:
+        return native
     out = []
     for i, cnt in enumerate(counts):
         x = int(cnt)
@@ -65,6 +80,9 @@ def counts_to_string(counts: Sequence[int]) -> str:
 
 
 def string_to_counts(s: str) -> List[int]:
+    native = native_string_to_counts(s)
+    if native is not None:
+        return native
     counts: List[int] = []
     i = 0
     while i < len(s):
@@ -116,6 +134,9 @@ def rle_iou(dt: Dict, gt: Dict, iscrowd: bool = False) -> float:
     """IoU between two RLE masks (decode-free run-merge; exact)."""
     a = _counts_of(dt)
     b = _counts_of(gt)
+    native = native_rle_iou(a, b, iscrowd)
+    if native is not None:
+        return native
     return _rle_iou_merge_py(a, b, iscrowd)
 
 

@@ -294,12 +294,44 @@ class Linear(nn.Linear):
 # Resizing
 # ---------------------------------------------------------------------------
 
+def _upsample_x2_adjoint(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The adjoint of 1-D 2x linear upsampling (half-pixel centres, edge
+    clamp) along ``dim``: output 2i is 3/4 x[i] + 1/4 x[max(i-1, 0)], output
+    2i+1 is 3/4 x[i] + 1/4 x[min(i+1, n-1)], so each input sums its own
+    fixed taps, in one order."""
+    g = g.movedim(dim, -1)
+    even, odd = g[..., 0::2], g[..., 1::2]
+    s = 0.75 * (even + odd)
+    s[..., :-1] += 0.25 * even[..., 1:]
+    s[..., 1:] += 0.25 * odd[..., :-1]
+    s[..., :1] += 0.25 * even[..., :1]
+    s[..., -1:] += 0.25 * odd[..., -1:]
+    return s.movedim(-1, dim)
+
+
+class _BilinearUpsampleX2(torch.autograd.Function):
+    """``F.interpolate``'s bilinear kernel forward (its bits), a gather-form
+    backward. torch's CUDA backward of that kernel scatters with atomics,
+    whose order (and so the gradient's last bits) changes from run to run;
+    under deterministic algorithms ``F.interpolate`` takes a decomposition
+    instead, slower both ways, with other forward bits. Here the forward is
+    the kernel in either mode and the backward repeats bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return torch.ops.aten.upsample_bilinear2d.vec(x, None, False, [2.0, 2.0])
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.promote_types(g.dtype, torch.float32))
+        return _upsample_x2_adjoint(_upsample_x2_adjoint(g, 2), 3).to(ctx.dtype)
+
+
 def bilinear_upsample_x2(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear, half-pixel centers with edge clamp (torch
     align_corners=False == ``jax.image.resize(..., "linear")``)."""
-    y = F.interpolate(to_nchw(x), scale_factor=2, mode="bilinear",
-                      align_corners=False)
-    return to_nhwc(y)
+    return to_nhwc(_BilinearUpsampleX2.apply(to_nchw(x)))
 
 
 def nearest_upsample_x2(x: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,11 @@ memory) and exits non-zero if a check fails. The default device is the GPU;
 The scene generator, the config edits, the series, the trends and the judges
 are the JAX tool's, so that one seed gives the same data and one
 ``metrics.json`` the same verdict.
+
+Each stage trains under torch's deterministic algorithms, so a run repeats
+bit for bit and a verdict does not change between two runs of one tree. The
+CLI sets ``CUBLAS_WORKSPACE_CONFIG`` for cuBLAS; a caller that runs ``main``
+after other CUDA work sets it before torch first calls cuBLAS.
 """
 
 from __future__ import annotations
@@ -380,16 +385,23 @@ def _judge(stage, out_s, tiny, det_keys):
 
 
 def _train(trainer_cls, cfg, device):
-    """One stage's trainer built and trained; (median seconds an iteration
-    over the writer's records, peak device memory in GiB or None on the
-    CPU)."""
+    """One stage's trainer built and trained under torch's deterministic
+    algorithms (the previous setting restored after), so that a run repeats
+    bit for bit; (median seconds an iteration over the writer's records,
+    peak device memory in GiB or None on the CPU)."""
     import torch
 
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    trainer_cls(cfg, device=device).train(resume=False)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        trainer_cls(cfg, device=device).train(resume=False)
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
     times = [x for _, x in _series(cfg.OUTPUT_DIR, "iter_time")]
     return {"median_iter_s": float(np.median(times)) if times else None,
@@ -508,4 +520,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    # cuBLAS's deterministic workspace, read when torch first calls cuBLAS
+    # (32 MiB, torch's own size on Hopper)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.exit(main())

@@ -295,15 +295,24 @@ CPU):
               any step of stage 1 and exactly 2 pool launches each way and 8
               NMS in every step of stages 2 and 3, each stage's first step
               with those calls held against their plain versions, the data
-              time a stage beside the serial loader's (PERF.md); (a2)
+              time a stage beside the serial loader's (PERF.md); the stages
+              run under deterministic algorithms, no op may warn that it has
+              none, and a sha256 digest of each stage's logged losses is
+              printed (two runs must print the same); (a2)
               ``validate_training --family keypoint`` (Keypoint R-CNN stage
               3, 150 iterations at 4 images): every judge, 2 pool launches
-              each way and 4 NMS every step, the first step held; (b)
+              each way and 4 NMS every step, the first step held, as (a) no
+              op without a deterministic one and its losses' digest; (b)
               ``generate_pseudo_labels`` with (a)'s stage-3 checkpoint over its
               16 images at score 0.05: 48 chain, 9 upsample, 2 pool and 2 NMS
               launches on every image, the first image's calls held against
-              their plain versions, images/s, the JSON read back by
-              ``register_coco_instances`` with 16 images; (c) PreciseBN on a
+              their plain versions, images/s and each image's time split into
+              ``predict``, the mask paste and the RLE encodes, the JSON read
+              back by ``register_coco_instances`` with 16 images; the native
+              RLE library (``afigan_tpu_torch/native``) built by
+              ``require_lib()`` before the tools run, one ``rle_encode`` call
+              an instance, and on the pseudo labels' own masks its encodes
+              equal to the numpy path's string for string, both timed; (c) PreciseBN on a
               4-iteration stage-3 run of the CenterMask YAML (BiFPN SyncBN
               that trains, ``NUM_ITER`` 8 of the YAML's 200): every running
               statistic replaced by finite values before the evaluation,
@@ -324,12 +333,18 @@ import functools
 import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
+
+# cuBLAS's deterministic workspace (32 MiB, torch's own size on Hopper), read
+# when torch first calls cuBLAS, long before phase tools runs
+# validate_training under deterministic algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # kernel name → (port source, the TPU kernel it replaces, the path whose
 # launches and shapes its entry of the JSON line reports)
@@ -5727,7 +5742,7 @@ def tools_validate(results):
     out = TOOLS_DIR / "validate"
     shutil.rmtree(out, ignore_errors=True)
     t0 = time.perf_counter()
-    with StepLaunches() as steps:
+    with nondeterministic_ops() as nondet, StepLaunches() as steps:
         rc = validate_training.main(["--family", "r50", "--stages", "1,2,3",
                                      "--iters", str(TOOLS_ITERS), "--out", str(out)])
     wall = time.perf_counter() - t0
@@ -5735,6 +5750,10 @@ def tools_validate(results):
     summary = json.loads((out / "summary.json").read_text())
     log(f"  validate_training r50, {TOOLS_ITERS} iterations a stage at 8 images: exit {rc}, "
         f"ok {summary['ok']}, {wall:.1f} s")
+    if nondet:
+        raise AssertionError(f"validate_training r50: ops without a deterministic "
+                             f"implementation ran: {sorted(nondet)}")
+    log("validate_training r50 loss digests " + json.dumps(loss_digests(out, "123")))
     for s in ("1", "2", "3"):
         t = summary["timing"][s]
         log(f"  stage {s}: {1000 * t['median_iter_s']:.1f} ms an iteration (median of the "
@@ -5762,6 +5781,45 @@ def tools_validate(results):
     if rc != 0 or not summary["ok"]:
         raise AssertionError(f"validate_training: exit {rc}, ok {summary['ok']}")
     return out
+
+
+@contextlib.contextmanager
+def nondeterministic_ops():
+    """While entered, the first line of every warning that an op ran without
+    a deterministic implementation (torch's deterministic algorithms in their
+    warn-only mode; a backward's warnings are replayed on the thread that
+    called it) is added to the yielded set. Every other warning is emitted
+    again on exit, each distinct one once."""
+    import warnings
+
+    found = set()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        yield found
+    shown = {}
+    for w in caught:
+        if "deterministic" in str(w.message):
+            found.add(str(w.message).splitlines()[0])
+        else:
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno,
+                                   registry=shown, source=w.source)
+
+
+def loss_digests(out: Path, stages: str) -> dict:
+    """Per stage, the sha256 of its logged losses (``s<stage>/metrics.json``:
+    each record's iteration and every scalar whose name holds "loss", in the
+    order written): equal digests, equal curves bit for bit."""
+    import hashlib
+
+    digests = {}
+    for st in stages:
+        h = hashlib.sha256()
+        for line in (out / f"s{st}" / "metrics.json").read_text().splitlines():
+            rec = json.loads(line)
+            h.update(json.dumps([rec["iteration"], sorted(
+                (k, v) for k, v in rec.items() if "loss" in k)]).encode())
+        digests[st] = h.hexdigest()
+    return digests
 
 
 def log_judges(what, checks):
@@ -5794,10 +5852,14 @@ def tools_validate_keypoint(results):
     out = TOOLS_DIR / "validate_keypoint"
     shutil.rmtree(out, ignore_errors=True)
     t0 = time.perf_counter()
-    with StepLaunches() as steps:
+    with nondeterministic_ops() as nondet, StepLaunches() as steps:
         rc = validate_training.main(["--family", "keypoint", "--iters", str(KEYPOINT_ITERS),
                                      "--out", str(out)])
     wall = time.perf_counter() - t0
+    if nondet:
+        raise AssertionError(f"validate_training keypoint: ops without a deterministic "
+                             f"implementation ran: {sorted(nondet)}")
+    log(f"validate_training keypoint loss digest {json.dumps(loss_digests(out, '3'))}")
     summary = json.loads((out / "summary.json").read_text())
     (rec,) = steps.loops
     want = {k: v for k, v in KEYPOINT_TOOLS_PER_STEP.items() if v}
@@ -5827,38 +5889,70 @@ def tools_pseudo_labels(results, validated: Path):
     """(b) generate_pseudo_labels with (a)'s stage-3 checkpoint over its 16
     scene images: every image's launches (the generator's, the pool's and
     NMS's), the first image's kernel calls held against their plain versions
-    (``PSEUDO_HELD``), images/s, and the JSON back through
-    ``register_coco_instances``."""
+    (``PSEUDO_HELD``), images/s, each image's time split into ``predict``
+    (synchronized), the mask paste and the RLE encodes, one call of the
+    native ``rle_encode`` an instance, and the JSON back through
+    ``register_coco_instances``. Then ``encode_ab`` on the encoded masks."""
     import torch
 
+    from afigan_tpu_torch import native
     from afigan_tpu_torch.config import CONFIGS, get_cfg
     from afigan_tpu_torch.data.coco import get_dataset, register_coco_instances
+    from afigan_tpu_torch.engine import inference
+    from afigan_tpu_torch.evaluation import rle
     from afigan_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from afigan_tpu_torch.tools import generate_pseudo_labels
 
     out = TOOLS_DIR / "pseudo_instances.json"
     img_dir = validated / "data" / "images"
-    per_image, stamps = [], []
+    per_image, stamps, split, masks = [], [], [], []
     cfg = get_cfg()
     cfg.merge_from_file(str(CONFIGS / STEP3_YAML))
     held = HeldKernels(cfg.TPU.COMPUTE_DTYPE)
+    parts = {"predict": 0.0, "paste": 0.0, "rle": 0.0}
+
+    def timed(fn, part):
+        # label_images imports these names at each call: the module
+        # attributes are what it runs
+        def run(*a, **k):
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            if part == "predict":
+                torch.cuda.synchronize()
+            elif part == "rle":
+                masks.append(a[0])
+            parts[part] += time.perf_counter() - t
+            return r
+        return run
 
     def after_image(fname):
         torch.cuda.synchronize()
         per_image.append(dict(LAUNCHES))
         stamps.append(time.perf_counter())
+        split.append(dict(parts, n=len(masks)))
+        parts.update(predict=0.0, paste=0.0, rle=0.0)
         reset_launches()
         held.__exit__(None, None, None)  # after the first image
 
     reset_launches()
+    native.reset_calls()
+    saved = inference.predict, inference.paste_masks, rle.encode_mask
+    inference.predict = timed(inference.predict, "predict")
+    inference.paste_masks = timed(inference.paste_masks, "paste")
+    rle.encode_mask = timed(rle.encode_mask, "rle")
     t0 = time.perf_counter()
-    with held:  # building the model and loading its weights launch nothing
-        coco = generate_pseudo_labels.main(
-            ["--config-file", str(CONFIGS / STEP3_YAML),
-             "--weights", str(validated / "s3" / f"model_{TOOLS_ITERS:07d}.pth"),
-             "--image-dir", str(img_dir), "--output", str(out),
-             "--score-thresh", str(PSEUDO_SCORE_THRESH), "MODEL.ROI_HEADS.NUM_CLASSES", "3"],
-            after_image=after_image)
+    try:
+        with held:  # building the model and loading its weights launch nothing
+            coco = generate_pseudo_labels.main(
+                ["--config-file", str(CONFIGS / STEP3_YAML),
+                 "--weights", str(validated / "s3" / f"model_{TOOLS_ITERS:07d}.pth"),
+                 "--image-dir", str(img_dir), "--output", str(out),
+                 "--score-thresh", str(PSEUDO_SCORE_THRESH), "MODEL.ROI_HEADS.NUM_CLASSES",
+                 "3"],
+                after_image=after_image)
+    finally:
+        inference.predict, inference.paste_masks, rle.encode_mask = saved
+    calls = dict(native.CALLS)
     if held.calls != PSEUDO_HELD:
         raise AssertionError(f"pseudo labels: the first image held {held.calls}, expected "
                              f"{PSEUDO_HELD}")
@@ -5882,6 +5976,20 @@ def tools_pseudo_labels(results, validated: Path):
         f"{1 / float(np.median(steady)):.2f} images/s, min {1000 * steady.min():.1f}, max "
         f"{1000 * steady.max():.1f} ms), launches an image " + json.dumps(
             {k: v for k, v in per_image[-1].items() if v}))
+    n_seg = sum("segmentation" in a for a in coco["annotations"])
+    if not n_seg or calls["rle_encode"] != n_seg or calls["rle_counts_to_string"] != n_seg:
+        raise AssertionError(f"pseudo labels: native calls {calls} for {n_seg} instances "
+                             f"with masks, expected one rle_encode and one "
+                             f"rle_counts_to_string each")
+    n_masks = np.diff([0] + [p["n"] for p in split])
+    ms = {k: 1000 * np.array([p[k] for p in split[1:]]) for k in ("predict", "paste", "rle")}
+    other = 1000 * np.diff(stamps) - sum(ms.values())
+    log(f"  pseudo labels, images 2-16, ms an image, median (min-max): " + ", ".join(
+        f"{k} {float(np.median(v)):.2f} ({v.min():.2f}-{v.max():.2f})"
+        for k, v in [*ms.items(), ("other", other)]) + f"; masks encoded an image "
+        f"{float(np.median(n_masks[1:])):.0f} ({n_masks.min()}-{n_masks.max()}); native "
+        f"calls {json.dumps({k: v for k, v in calls.items() if v})} for {n_seg} instances")
+    encode_ab(masks)
     register_coco_instances("chip_smoke_pseudo", str(out), str(img_dir), filter_empty=False)
     ds = get_dataset("chip_smoke_pseudo")
     n_anns = sum(len(r["annotations"]) for r in ds.records)
@@ -5890,6 +5998,42 @@ def tools_pseudo_labels(results, validated: Path):
                              f"annotations read back")
     if any(not isinstance(a.get("segmentation"), dict) for a in coco["annotations"]):
         raise AssertionError("pseudo labels: an instance without its RLE mask")
+
+
+def encode_ab(masks):
+    """The pseudo labels' own masks encoded by the native library and by the
+    numpy path (the loader forced to None), in turns (native, numpy, numpy,
+    native), each mask timed on its own: the same counts string from both,
+    and each path's median a mask and sum over the masks."""
+    from afigan_tpu_torch import native
+    from afigan_tpu_torch.evaluation import rle
+
+    times = {"native": [], "numpy": []}
+    strings = {}
+    get_lib = native.get_lib
+    for path in ("native", "numpy", "numpy", "native"):
+        native.get_lib = get_lib if path == "native" else (lambda: None)
+        try:
+            got = []
+            for m in masks:
+                t = time.perf_counter()
+                got.append(rle.encode_mask(m)["counts"])
+                times[path].append(time.perf_counter() - t)
+        finally:
+            native.get_lib = get_lib
+        if strings.setdefault(path, got) != got:
+            raise AssertionError(f"RLE encode: the {path} path gave other strings in turn 2")
+    bad = sum(a != b for a, b in zip(strings["native"], strings["numpy"]))
+    if bad or not masks:
+        raise AssertionError(f"RLE encode: {bad} of {len(masks)} masks differ between the "
+                             f"native library and the numpy path")
+    h, w = masks[0].shape
+    med = {k: 1e6 * float(np.median(v)) for k, v in times.items()}
+    log(f"  RLE encode A/B on the pseudo labels' {len(masks)} masks ({h}x{w}, "
+        f"{masks[0].dtype}), equal strings: native {med['native']:.1f} us a mask (median of "
+        f"2 turns; {1e3 * sum(times['native']) / 2:.2f} ms for all), numpy "
+        f"{med['numpy']:.1f} us ({1e3 * sum(times['numpy']) / 2:.2f} ms): "
+        f"{med['numpy'] / med['native']:.2f}x")
 
 
 def tools_precise_bn():
@@ -6023,7 +6167,35 @@ def tools_convert(validated: Path):
         f"0 mismatched, 0 missing; {n} tensors equal on the card")
 
 
+def host_cpu() -> str:
+    """The host CPU as ``lscpu`` names it (its "Model name", with the vendor
+    where it has one), and ``/proc/cpuinfo``'s model name beside it."""
+    def field(text, key):
+        return next((ln.split(":", 1)[1].strip() for ln in text.splitlines()
+                     if ln.startswith(key)), None)
+
+    try:
+        lscpu = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+        named = f"lscpu {field(lscpu, 'Model name')!r}, vendor {field(lscpu, 'Vendor ID')!r}"
+    except FileNotFoundError:
+        named = "no lscpu"
+    try:
+        cpuinfo = field(Path("/proc/cpuinfo").read_text(), "model name")
+    except OSError:
+        cpuinfo = None
+    return f"{named}; /proc/cpuinfo {cpuinfo!r}; {os.cpu_count()} CPUs"
+
+
 def phase_tools(results):
+    from afigan_tpu_torch import native
+
+    # an earlier phase's mask decode may have built it already (get_lib)
+    loaded = native._lib is not None
+    t0 = time.perf_counter()
+    native.require_lib()  # a failed build fails the run here, not behind numpy
+    log(f"  native RLE library {native.lib_path().name} " + (
+        "loaded at its first use by an earlier phase" if loaded else
+        f"built and loaded in {time.perf_counter() - t0:.2f} s") + f"; host CPU {host_cpu()}")
     validated = tools_validate(results)
     tools_validate_keypoint(results)
     tools_pseudo_labels(results, validated)

@@ -1,6 +1,8 @@
 """The port stands on its own: nothing under ``afigan_tpu_torch/`` nor
 ``chip_smoke.py`` imports jax, flax or the JAX package, or reaches a file of
-the JAX package by path; importing the port loads none of them. The port's
+the JAX package by path (its native library's ``.cpp`` or ``.so`` included,
+and from the port's C++ and CUDA sources too); importing the port loads none
+of them. The port's
 copies of the JAX package's numpy host code are held against the originals:
 equal config trees from every inference YAML, equal AP from both evaluators
 on the same predictions, equal dataset records and resize numerics.
@@ -26,6 +28,10 @@ CITATION = re.compile(r"^afigan_tpu/[\w/]+\.py:\d+(::\w+ \([\w ,]+\))?$")
 PORT_FILES = sorted(
     glob.glob(os.path.join(REPO, "afigan_tpu_torch", "**", "*.py"), recursive=True)
 ) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")]
+# the port's C++ and CUDA sources
+PORT_SOURCES = sorted(
+    p for ext in ("cu", "cuh", "cpp")
+    for p in glob.glob(os.path.join(REPO, "afigan_tpu_torch", "**", f"*.{ext}"), recursive=True))
 SUBPACKAGES = ["afigan_tpu_torch." + m for m in (
     "config", "data", "data.loader", "engine.inference", "evaluation", "models",
     "models.swin", "models.bifpn", "models.cascade_roi_heads", "ops.kernels.layer_norm",
@@ -40,7 +46,7 @@ SUBPACKAGES = ["afigan_tpu_torch." + m for m in (
     "parallel.dist", "engine.launch", "engine.precise_bn", "utils.msgpack_tree",
     "utils.profiling", "tools.convert_checkpoint", "tools.validate_training",
     "tools.generate_pseudo_labels", "models.keypoint_head", "models.res5_roi_heads",
-    "ops.deform_conv", "ops.kernels.deform_conv")]
+    "ops.deform_conv", "ops.kernels.deform_conv", "native")]
 
 
 def _violations(path):
@@ -65,8 +71,25 @@ def _violations(path):
         if (isinstance(node, ast.Constant) and isinstance(node.value, str)
                 and id(node) not in doc_nodes and not CITATION.match(node.value)):
             parts = node.value.replace("\\", "/").replace(".", "/").split("/")
-            if "afigan_tpu" in parts:
+            # librle_native.so: the JAX package's native library (the
+            # port's is rle_native-<hash>.so)
+            if "afigan_tpu" in parts or "librle_native" in node.value:
                 bad.append(f"line {node.lineno}: string {node.value!r}")
+    return bad
+
+
+def _source_violations(path):
+    """An ``#include`` or a string literal of a C++ / CUDA source (comments
+    stripped: they may cite the JAX file each kernel is the counterpart of)
+    that names the JAX package."""
+    text = re.sub(r"/\*.*?\*/", "", open(path).read(), flags=re.S)
+    bad = []
+    for i, line in enumerate(text.splitlines(), 1):
+        code = line.split("//")[0]
+        for lit in re.findall(r'"[^"]*"|<[^>]*>', code) if "#include" in code else \
+                re.findall(r'"[^"]*"', code):
+            if re.search(r"afigan_tpu(/|\b(?!_torch))|librle_native", lit):
+                bad.append(f"line {i}: {lit}")
     return bad
 
 
@@ -77,11 +100,41 @@ def test_port_files_found():
     assert any(p.endswith("engine/launch.py") for p in PORT_FILES)
     assert any(p.endswith("models/keypoint_head.py") for p in PORT_FILES)
     assert any(p.endswith("models/res5_roi_heads.py") for p in PORT_FILES)
+    assert any(p.endswith("native/__init__.py") for p in PORT_FILES)
+    assert any(p.endswith("native/rle_native.cpp") for p in PORT_SOURCES)
+    assert any(p.endswith("csrc/nms.cu") for p in PORT_SOURCES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, REPO))
 def test_no_import_of_jax_or_the_jax_package(path):
     assert _violations(path) == []
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: os.path.relpath(p, REPO))
+def test_no_port_source_reaches_the_jax_package(path):
+    assert _source_violations(path) == []
+
+
+@pytest.mark.parametrize("line", [
+    "P = os.path.join(REPO, 'afigan_tpu', 'native', 'rle_native.cpp')",
+    "P = 'afigan_tpu/native/rle_native.cpp'",
+    "P = Path(__file__).parents[2] / 'afigan_tpu/native'",
+    "LIB = ctypes.CDLL('../afigan_tpu/native/librle_native.so')",
+    "LIB = ctypes.CDLL(str(HERE / 'librle_native.so'))",
+    "M = importlib.import_module('afigan_tpu.native')",
+])
+def test_the_check_sees_paths_to_the_jax_native_library(line, tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(f'"""cites afigan_tpu/native/rle_native.cpp."""\n{line}\n')
+    assert len(_violations(str(src))) == 1, line
+    cpp = tmp_path / "m.cpp"
+    cpp.write_text("// counterpart of afigan_tpu/native/rle_native.cpp\n"
+                   '#include "afigan_tpu_torch/native/x.h"\n')
+    assert _source_violations(str(cpp)) == []
+    for bad in ('#include "../../afigan_tpu/native/rle_native.cpp"',
+                'const char* so = "librle_native.so";'):
+        cpp.write_text(bad + "\n")
+        assert len(_source_violations(str(cpp))) == 1, bad
 
 
 def test_the_check_sees_imports_and_paths(tmp_path):

@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from afigan_tpu.models import layers as jax_layers
 from afigan_tpu.models.build import build_backbone as jax_build_backbone
@@ -31,6 +32,32 @@ def test_resize_matches_jax(fn, shape):
     want = getattr(jax_layers, fn)(jnp.asarray(x))
     got = getattr(layers, fn)(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 2), (1, 1, 4, 2), (1, 5, 7, 3), (2, 4, 6, 8)])
+def test_bilinear_upsample_x2_gradient(shape):
+    """The gather-form adjoint against jax.vjp of the JAX resize and against
+    torch's own (scatter) backward of ``F.interpolate``, one-pixel sides
+    included; the forward keeps ``F.interpolate``'s bits."""
+    rng = np.random.RandomState(1)
+    x = rng.randn(*shape).astype(np.float32)
+    g = rng.randn(shape[0], 2 * shape[1], 2 * shape[2], shape[3]).astype(np.float32)
+    _, vjp = jax.vjp(jax_layers.bilinear_upsample_x2, jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = layers.bilinear_upsample_x2(xt)
+    y.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=0, atol=1e-5)
+    x64 = torch.from_numpy(x).double().requires_grad_(True)
+    plain = F.interpolate(x64.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
+                          align_corners=False)
+    plain.backward(torch.from_numpy(g).double().permute(0, 3, 1, 2))
+    got64 = torch.from_numpy(x).double().requires_grad_(True)
+    layers.bilinear_upsample_x2(got64).backward(torch.from_numpy(g).double())
+    np.testing.assert_allclose(got64.grad.numpy(), x64.grad.numpy(), rtol=0, atol=1e-12)
+    assert torch.equal(y.detach().permute(0, 3, 1, 2),
+                       F.interpolate(torch.from_numpy(x).permute(0, 3, 1, 2), scale_factor=2,
+                                     mode="bilinear", align_corners=False))
 
 
 def _perturb_norms(params, rng):

@@ -163,6 +163,64 @@ def test_validate_training_tiny_runs_three_r50_stages(tmp_path, monkeypatch):
         vt.parse_args(["--family", "s101", "--stages", "1,2,3"])
 
 
+def test_validate_training_repeats_bit_for_bit(tmp_path):
+    """Two runs of stage 2 (the detector's backward reaches the generator's
+    bilinear skip) give the same checkpoints bit for bit, and the tool leaves
+    torch's deterministic-algorithms setting as it found it."""
+    import glob
+
+    states = []
+    for run in ("a", "b"):
+        out = str(tmp_path / run)
+        assert vt.main(["--tiny", "--iters", "4", "--device", "cpu", "--stages", "2",
+                        "--out", out]) == 0
+        paths = sorted(glob.glob(os.path.join(out, "s2", "**", "*.pth"), recursive=True))
+        assert paths
+        states.append({os.path.relpath(p, out): torch.load(p, map_location="cpu")
+                       for p in paths})
+        assert not torch.are_deterministic_algorithms_enabled()
+    assert states[0].keys() == states[1].keys()
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from flat(v, f"{prefix}/{k}")
+        elif isinstance(tree, torch.Tensor):
+            yield prefix, tree
+
+    for name in states[0]:
+        a, b = dict(flat(states[0][name])), dict(flat(states[1][name]))
+        assert a.keys() == b.keys() and len(a) > 10, name
+        for k in a:
+            assert torch.equal(a[k], b[k]), (name, k)
+
+
+@pytest.mark.parametrize("before", [(False, False), (True, True)])
+def test_train_restores_the_deterministic_setting(before):
+    """``_train`` runs the trainer under deterministic algorithms (warn-only)
+    and gives the caller's setting back, also when the trainer raises."""
+    seen = []
+
+    class Raising:
+        def __init__(self, cfg, device):
+            pass
+
+        def train(self, resume):
+            seen.append((torch.are_deterministic_algorithms_enabled(),
+                         torch.is_deterministic_algorithms_warn_only_enabled()))
+            raise RuntimeError("stop")
+
+    torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+    try:
+        with pytest.raises(RuntimeError, match="stop"):
+            vt._train(Raising, None, "cpu")
+        after = (torch.are_deterministic_algorithms_enabled(),
+                 torch.is_deterministic_algorithms_warn_only_enabled())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert seen == [(True, True)] and after == before
+
+
 PSEUDO_IMAGES = 3
 
 
